@@ -1,19 +1,17 @@
-"""ipu_path_trace_tpu: a TPU-native physically based Monte-Carlo path tracer.
+"""ipu_path_trace_tpu: a physically based Monte-Carlo path tracer in JAX.
 
 A from-scratch re-design of the Graphcore IPU path tracer
-(reference: markp-gc/ipu_path_trace) for TPU hardware using JAX / XLA /
-Pallas.  The reference's per-tile megakernel + byte-punned contribution
-stacks (reference: src/codelets/codelets.cpp) are restructured into a
-wavefront renderer over SoA ray batches with masked lanes, and the neural
-environment light (NIF MLP) runs as large batched matmuls on the MXU
-(optionally as a fused VMEM-resident Pallas kernel).
+(reference: markp-gc/ipu_path_trace) using JAX / XLA.  The reference's
+per-tile megakernel + byte-punned contribution stacks (reference:
+src/codelets/codelets.cpp) are restructured into a wavefront renderer
+over SoA ray batches with masked lanes, and the neural environment light
+(NIF MLP) runs as large batched matmuls.
 
 Layout:
   core/      vector math, camera, geometry, BSDFs, scene (pure jnp)
   cpu/       independent NumPy oracle used as the golden reference in tests
   render/    the jittable wavefront render step
   models/    neural image field (NIF): loaders, MLP, trainer, env lights
-  ops/       Pallas TPU kernels for the hot paths
   parallel/  device-mesh sharding of the render step
   film/      HDR accumulation, tone mapping, PNG/EXR io
   runtime/   CLI, config, progressive render loop, worklists, AOT cache

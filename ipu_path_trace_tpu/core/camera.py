@@ -1,6 +1,6 @@
 """Pinhole camera and anti-aliasing jitter.
 
-TPU-native equivalent of the ``GenerateCameraRays`` codelet
+Equivalent of the ``GenerateCameraRays`` codelet
 (reference: src/codelets/codelets.cpp:36-80) and the AA-noise generators
 (reference: src/PathTracerApp.cpp:29-45).
 

@@ -1,6 +1,6 @@
 """Equirectangular environment-map projection.
 
-TPU-native equivalent of the ``PreProcessEscapedRays`` codelet
+Equivalent of the ``PreProcessEscapedRays`` codelet
 (reference: src/codelets/codelets.cpp:312-358): escaped-ray directions
 become (u, v) lookups for the environment light (texture or NIF MLP).
 """

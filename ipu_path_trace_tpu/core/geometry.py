@@ -1,6 +1,6 @@
 """Ray/scene intersection, vectorised over the wavefront batch.
 
-TPU-native equivalent of ``light::Scene::intersect`` as used by the trace
+Equivalent of ``light::Scene::intersect`` as used by the trace
 megakernel (reference: src/codelets/codelets.cpp:183).  The per-ray
 object loop becomes a broadcast over a (batch, objects) grid with an
 argmin; the object count is tiny and static so XLA fully unrolls it.
@@ -81,8 +81,8 @@ def intersect_scene(scene: Scene, o: Vec3, d: Vec3) -> Hit:
 
     The object loop is unrolled statically with per-lane selects - object
     attributes are compile-time scalars broadcast over the batch, so the
-    hot loop contains NO dynamic gathers (gathers serialise badly on the
-    TPU's scatter/gather unit; the select chain stays on the VPU).
+    hot loop contains NO dynamic gathers (the select chain fuses into
+    one elementwise kernel).
     """
     num_s = scene.num_spheres
     num_d = scene.disc_radius.shape[0]

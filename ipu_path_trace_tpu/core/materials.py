@@ -1,6 +1,6 @@
 """BSDF sampling and russian roulette, vectorised with masked lanes.
 
-TPU-native equivalents of ``light::diffuse``, ``light::reflect``,
+Equivalents of ``light::diffuse``, ``light::reflect``,
 ``light::refract`` and ``light::rouletteWeight`` as consumed by the trace
 megakernel (reference: src/codelets/codelets.cpp:173-216).  The math is
 reconstructed from the reference's smallpaint lineage (the tell-tale
@@ -86,8 +86,7 @@ def refract(d: Vec3, n: Vec3, refractive_index, rand) -> tuple[Vec3, jnp.ndarray
     eta = jnp.where(inside, n_idx, 1.0 / n_idx)  # smallpaint: n=1/n then n=1/n again when inside
     cost1 = -d.dot(nl)
     cost2 = 1.0 - eta * eta * (1.0 - cost1 * cost1)
-    # (1 - cost1)^5 via multiplies: exact Schlick, and jnp.power does not
-    # lower in Mosaic (the fused trace kernel shares this code).
+    # (1 - cost1)^5 via multiplies (exact Schlick):
     p1 = 1.0 - cost1
     p2 = p1 * p1
     rprob = r0 + (1.0 - r0) * (p2 * p2 * p1)

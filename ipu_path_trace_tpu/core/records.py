@@ -1,7 +1,7 @@
 """Trace-record work items: SoA on device, 20-byte AoS on the host wire.
 
 The reference streams a packed 20-byte ``TraceRecord`` per pixel both ways
-every step (reference: src/codelets/TraceRecord.hpp:7-19).  On TPU the
+every step (reference: src/codelets/TraceRecord.hpp:7-19).  Here the
 device side is SoA arrays (no byte punning), but the host-side worklist
 keeps the exact reference memory layout so tooling and the remote UI can
 interoperate, and so the host C++ runtime can process it with the same

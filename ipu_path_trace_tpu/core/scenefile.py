@@ -1,4 +1,4 @@
-"""JSON scene descriptions (--scene) - a TPU-side extension.
+"""JSON scene descriptions (--scene) - an extension.
 
 The reference hard-codes its scene inside the device codelet
 (reference: src/codelets/codelets.cpp:111-144), so changing geometry

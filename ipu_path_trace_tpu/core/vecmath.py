@@ -1,11 +1,10 @@
 """SoA 3-vector math for the wavefront path tracer.
 
 Vectors are stored as three separate component arrays (structure of
-arrays).  On TPU this keeps every elementwise op on the VPU with the batch
-dimension mapped onto (sublane, lane) tiles, instead of burying a
-3-element axis in the 128-wide lane dimension.
+arrays), so every elementwise op runs over the contiguous batch
+dimension instead of a strided 3-element axis.
 
-This is the TPU-native equivalent of ``light::Vector``
+This is the equivalent of ``light::Vector``
 (reference: external/light, used throughout src/codelets/codelets.cpp).
 """
 

@@ -3,7 +3,7 @@
 The reference builds its CPU math library (external/light) as a
 standalone reference tracer "for reference" (reference: CMakeLists.txt:5-7)
 and BASELINE designates it as the RMSE ground truth.  This module plays
-that role for the TPU framework: a from-scratch NumPy implementation of
+that role for this framework: a from-scratch NumPy implementation of
 the same render math (camera, sphere/disc intersection, BSDFs, russian
 roulette, equirect environment lookup, NIF MLP) sharing **no code** with
 the jax implementation.
@@ -180,12 +180,12 @@ def _eval_env(env, u, v):
         return tex[r, c].astype(np.float32)
     if kind == "nif":
         weights, meta = env[1], env[2]
-        bgr = _nif_forward(weights, meta, u, v)
+        bgr = nif_forward(weights, meta, u, v)
         return bgr[:, ::-1].copy()  # channel reversal (codelets.cpp:377-378)
     raise ValueError(f"unknown env kind {kind}")
 
 
-def _nif_forward(weights, meta, u, v):
+def nif_forward(weights, meta, u, v):
     """float32 NumPy twin of the NIF MLP (NifModel.cpp:185-245,299-326)."""
     e = meta.embedding_dimension
     coeffs = (2.0 ** np.arange(e)).astype(np.float32)

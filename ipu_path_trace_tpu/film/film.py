@@ -1,6 +1,6 @@
 """HDR film accumulation and tone mapping.
 
-TPU-native equivalent of AccumulatedImage
+Equivalent of AccumulatedImage
 (reference: src/AccumulatedImage.cpp).  The film is RGB float32 (the
 reference stores BGR because of OpenCV; we keep RGB and convert at the
 image writers).  Accumulation semantics match exactly:

@@ -1,17 +1,18 @@
-"""Image IO: PNG (via PIL) and a dependency-free OpenEXR subset.
+"""Image IO: dependency-free PNG and OpenEXR subsets.
 
 The reference saves a tone-mapped PNG plus a `.exr` HDR alongside
-(reference: src/AccumulatedImage.cpp:11-14,48-56, via OpenCV).  OpenCV's
-EXR codec is often compiled out, so we implement the small subset of
-OpenEXR v2 needed here: single-part scanline images, NONE compression,
-HALF/FLOAT channels.
+(reference: src/AccumulatedImage.cpp:11-14,48-56, via OpenCV).  Both
+writers here use the standard library only: PNG as 8-bit RGB with
+unfiltered zlib-compressed scanlines, and the small subset of OpenEXR v2
+needed here: single-part scanline images, NONE compression, HALF/FLOAT
+channels.
 """
 
 from __future__ import annotations
 
-import struct
-
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -20,11 +21,58 @@ _PT_HALF = 1
 _PT_FLOAT = 2
 
 
-def write_png(path: str, ldr: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image."""
-    from PIL import Image
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
-    Image.fromarray(ldr, mode="RGB").save(path)
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
+
+
+def write_png(path: str, ldr: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG."""
+    ldr = np.ascontiguousarray(ldr, np.uint8)
+    h, w, c = ldr.shape
+    if c != 3:
+        raise ValueError("write_png expects (H, W, 3) RGB")
+    # Each scanline is prefixed with filter type 0 (None):
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), ldr.reshape(h, 3 * w)],
+                         axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    with open(path, "wb") as f:
+        f.write(_PNG_MAGIC)
+        f.write(_png_chunk(b"IHDR", ihdr))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a PNG written by write_png (8-bit RGB, unfiltered rows)
+    -> (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != _PNG_MAGIC:
+        raise ValueError("not a PNG file")
+    pos, idat, size = 8, [], None
+    while pos < len(blob):
+        (n,) = struct.unpack_from(">I", blob, pos)
+        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack_from(">I", blob, pos + 8 + n)
+        if zlib.crc32(tag + data) != crc:
+            raise ValueError(f"PNG chunk {tag!r}: bad CRC")
+        if tag == b"IHDR":
+            size = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        pos += 12 + n
+    if size is None or size[2:] != (8, 2, 0, 0, 0):
+        raise ValueError("only 8-bit RGB, non-interlaced PNGs are supported")
+    w, h = size[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError("only unfiltered PNG scanlines are supported")
+    return rows[:, 1:].reshape(h, w, 3).copy()
 
 
 def _attr(name: bytes, typ: bytes, data: bytes) -> bytes:
@@ -158,7 +206,7 @@ def save_images(path: str, hdr_at_step: np.ndarray, ldr: np.ndarray) -> None:
 
     Mirrors AccumulatedImage::saveImages (AccumulatedImage.cpp:48-56).
     An ``.exr`` outfile gets the HDR at that exact path and the
-    tone-mapped PNG alongside (PIL cannot encode EXR).
+    tone-mapped PNG alongside.
     """
     base, ext = os.path.splitext(path)
     if ext.lower() == ".exr":

@@ -32,7 +32,7 @@ corrupt checkpoint surfaces as a shape-chain error instead.
 Usage:
     python -m ipu_path_trace_tpu.models.convert <saved_model_dir> <out_dir>
 
-Writes <out_dir>/converted.hdf5 and copies nif_metadata.txt from the
+Writes <out_dir>/converted.hdf5 (and its converted.npz twin) and copies nif_metadata.txt from the
 saved-model's assets.extra/ (the reference's layout) when present, so
 <out_dir> is directly loadable via load_nif_assets / --assets.
 """
@@ -48,7 +48,7 @@ import sys
 import numpy as np
 
 from ..utils.logging import logger
-from .nif import NifLayer, NifWeights
+from .nif import NifLayer, NifWeights, save_weights
 
 _TABLE_MAGIC = 0xDB4775248B80FB57
 
@@ -336,8 +336,8 @@ def convert(model_dir: str, out_dir: str) -> str:
     """SavedModel dir -> assets dir with converted.hdf5 (+ metadata)."""
     weights = saved_model_to_weights(model_dir)
     os.makedirs(out_dir, exist_ok=True)
+    save_weights(out_dir, weights)
     h5_path = os.path.join(out_dir, "converted.hdf5")
-    weights.save_h5(h5_path)
     for l in weights.layers:
         logger().info("  %-10s kernel %s bias %s %s %s", l.name,
                       l.kernel.shape,

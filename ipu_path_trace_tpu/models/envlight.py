@@ -2,10 +2,10 @@
 
 The reference defers all environment lighting of escaped rays to a
 batched lookup after the trace loop (PreProcess -> NIF -> PostProcess,
-reference: src/codelets/codelets.cpp:312-385).  That design is also the
-TPU-optimal one: the whole escaped-ray batch hits the MXU as one large
-matmul.  Dispatch over env-light type is static (by python type), so each
-variant jit-specialises.
+reference: src/codelets/codelets.cpp:312-385), so the whole escaped-ray
+batch runs the NIF as one large batched matmul chain.  Dispatch over
+env-light type is static (by python type), so each variant
+jit-specialises.
 
 All variants return RGB.  The NIF variant reverses the network's channel
 order exactly as PostProcessEscapedRays does (codelets.cpp:377-378).
@@ -50,8 +50,8 @@ class NifEnv(NamedTuple):
     params: NifParams
 
 
-def _nif_apply_xla(params, u, v):
-    """XLA (non-Pallas) NIF evaluation, dispatched on the param type."""
+def _nif_apply(params, u, v):
+    """NIF evaluation -> (P, 3), dispatched on the param type."""
     from .quant import QuantNifParams, nif_apply_quant
 
     if isinstance(params, QuantNifParams):
@@ -59,19 +59,8 @@ def _nif_apply_xla(params, u, v):
     return nif_apply(params, u, v)
 
 
-def _pallas_available() -> bool:
-    """Fused Pallas kernel only lowers on real TPU backends."""
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def eval_env(env, u: jnp.ndarray, v: jnp.ndarray, use_pallas: bool = True) -> Vec3:
-    """Evaluate environment radiance at equirect (u, v) in [0, 1].
-
-    ``use_pallas`` opts the NIF variant into the fused VMEM kernel; it is
-    ANDed with backend support (the kernel only lowers on TPU).
-    """
+def eval_env(env, u: jnp.ndarray, v: jnp.ndarray) -> Vec3:
+    """Evaluate environment radiance at equirect (u, v) in [0, 1]."""
     if isinstance(env, ConstantEnv):
         c = jnp.asarray(env.colour, jnp.float32)
         ones = jnp.ones_like(u)
@@ -81,15 +70,7 @@ def eval_env(env, u: jnp.ndarray, v: jnp.ndarray, use_pallas: bool = True) -> Ve
     if isinstance(env, NifEnv):
         # The network emits its native channel order; reverse it (bgr ->
         # rgb) exactly as PostProcessEscapedRays (codelets.cpp:377-378).
-        if use_pallas and _pallas_available():
-            # Fused VMEM-resident kernel; channel-major output feeds the
-            # Vec3 rows with zero transposes (ops/nif_pallas.py).  The
-            # kernel dispatches on the param type (bf16 vs int8 chain).
-            from ..ops.nif_pallas import nif_apply_pallas_t
-
-            out_t = nif_apply_pallas_t(env.params, u, v)  # (3, P)
-            return Vec3(out_t[2], out_t[1], out_t[0])
-        out = _nif_apply_xla(env.params, u, v)  # (P, 3)
+        out = _nif_apply(env.params, u, v)  # (P, 3)
         return Vec3(out[:, 2], out[:, 1], out[:, 0])
     raise TypeError(f"Unknown environment light type: {type(env)!r}")
 
@@ -98,26 +79,17 @@ def bake_nif_env(
     env: NifEnv,
     height: int = 2048,
     width: int = 4096,
-    use_pallas: bool = True,
     max_batch_size: int = 30 * 1472,
 ) -> TextureEnv:
-    """Decode the NIF once into an equirect texture (TPU-first mode).
+    """Decode the NIF once into an equirect texture.
 
     The reference evaluates the MLP inside the render loop because an
     IPU tile cannot hold the decoded HDRI - compressing it into ~1 MB of
-    weights IS the point there (README.md:7-12).  A TPU has tens of GB
-    of HBM, so this mode decodes once (~8.4M evals, the cost of ~8
-    render samples) and serves escaped rays with bilinear lookups.
-    Azimuth rotation needs no re-bake - it enters through equirect_uv
-    before the lookup, exactly as it enters the NIF's input.
-
-    Measured on v5e, however, the fused in-loop MLP WINS (102 vs 22
-    Mpaths/s at 1104x1000): four bilinear gathers per ray from a 100 MB
-    HBM texture serialise on the scatter/gather unit, while the MXU
-    chews through the 1 MB MLP from VMEM.  The NIF's
-    compress-into-compute trade is TPU-optimal too, so fused stays the
-    default; baked remains useful for cheap env models on CPU or for
-    debugging.
+    weights IS the point there (README.md:7-12).  An accelerator with
+    tens of GB of device memory can instead decode once (~8.4M evals,
+    the cost of ~8 render samples) and serve escaped rays with bilinear
+    lookups.  Azimuth rotation needs no re-bake - it enters through
+    equirect_uv before the lookup, exactly as it enters the NIF's input.
 
     The grid is laid on the lookup lattice (u_k = k/(h-1)) so
     eval_env(TextureEnv) reproduces eval_env(NifEnv) exactly at lattice
@@ -130,24 +102,18 @@ def bake_nif_env(
     # Serialise by row blocks (the --max-nif-batch-size strategy of
     # PathTracerApp.cpp:146-164, wired from Config.max_nif_batch_size by
     # runtime/app.py): an unbatched 2048x4096 bake would materialise
-    # ~(8.4M, hidden) activations per layer on the XLA path.
+    # ~(8.4M, hidden) activations per layer.
     rows_per_chunk = max(1, max_batch_size // width)
     cols_v = jnp.tile(jnp.linspace(0.0, 1.0, width), rows_per_chunk)
     out_np = np.empty((height, width, 3), np.float32)
-    apply_xla = jax.jit(_nif_apply_xla)
+    apply = jax.jit(_nif_apply)
     for r0 in range(0, height, rows_per_chunk):
         r1 = min(r0 + rows_per_chunk, height)
         rows_u = jnp.repeat(
             jnp.arange(r0, r1, dtype=jnp.float32) / (height - 1), width
         )
         v = cols_v[: (r1 - r0) * width]
-        if use_pallas and _pallas_available():
-            from ..ops.nif_pallas import nif_apply_pallas_t
-
-            out_t = nif_apply_pallas_t(env.params, rows_u, v)  # (3, P)
-            chunk = jnp.stack([out_t[2], out_t[1], out_t[0]], axis=-1)
-        else:
-            chunk = apply_xla(env.params, rows_u, v)[:, ::-1]
+        chunk = apply(env.params, rows_u, v)[:, ::-1]
         out_np[r0:r1] = np.asarray(chunk).reshape(r1 - r0, width, 3)
     return TextureEnv(texture=jnp.asarray(out_np), bilinear=True)
 

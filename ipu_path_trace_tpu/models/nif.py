@@ -1,6 +1,6 @@
-"""Neural Image Field (NIF): metadata, keras-HDF5 weights, and inference.
+"""Neural Image Field (NIF): metadata, weights, and inference.
 
-TPU-native re-implementation of the reference's NIF stack:
+Re-implementation of the reference's NIF stack:
   - metadata JSON parser          (reference: src/neural_networks/NifMetaData.cpp:19-64)
   - keras HDF5 weight loader      (reference: src/keras/Hdf5Model.cpp:21-133)
   - Fourier-feature encoder + dense MLP + tone-map decoder
@@ -10,15 +10,21 @@ The encoder/decoder math is kept exactly: uv' = 2*(uv - 1), features
 [sin(u 2^j), sin(v 2^j), cos(u 2^j), cos(v 2^j)] for j < embedding_dim,
 hidden layers with auto-detected skip-concat of the input features, and
 decode y = x * max + mean (with eps folded into mean), exp() when
-log-tone-mapped.  Matmuls run in bfloat16 on the MXU with float32
-accumulation (the TPU analog of fp16 weights + half partials,
-PathTracerApp.cpp:140-145).
+log-tone-mapped.  Matmuls run in bfloat16 with float32 accumulation
+(the analog of fp16 weights + half partials, PathTracerApp.cpp:140-145).
+
+Weights: keras HDF5 (``converted.hdf5``) is the interchange format that
+the reference and models/convert.py write.  Each shipped asset also
+keeps the same weights as ``converted.npz``, which the loader prefers,
+so rendering needs no HDF5 library (regenerate with
+``python scripts/export_npz.py assets/<dir> ...``).
 """
 
 from __future__ import annotations
 
 import json
 import dataclasses
+import os
 from typing import Any, NamedTuple, Sequence
 
 import numpy as np
@@ -124,7 +130,13 @@ class NifWeights:
         shapes at inference time), any other layer class is an error -
         mirroring the reference loader (Hdf5Model.cpp:39-52).
         """
-        import h5py
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError(
+                f"reading '{path}' needs h5py; without it, load the asset's "
+                "converted.npz instead (write one with "
+                "scripts/export_npz.py where h5py is installed)") from e
 
         layers: list[NifLayer] = []
         with h5py.File(path, "r") as f:
@@ -153,6 +165,39 @@ class NifWeights:
                         dtype=str(lcfg.get("dtype", "float32")),
                     )
                 )
+        if not layers:
+            raise ValueError(f"No Dense layers found in '{path}'.")
+        return NifWeights(layers)
+
+    def save_npz(self, path: str) -> None:
+        """Save as NumPy .npz: arrays ``kernel_i`` / ``bias_i`` in the
+        layer's storage dtype (as save_h5 stores them) plus the layer
+        descriptions as a JSON string (no pickling)."""
+        desc = [{"name": l.name, "activation": l.activation, "dtype": l.dtype,
+                 "use_bias": l.bias is not None} for l in self.layers]
+        arrays = {"layers": np.asarray(json.dumps(desc))}
+        for i, l in enumerate(self.layers):
+            store_dtype = np.float16 if l.dtype == "float16" else np.float32
+            arrays[f"kernel_{i}"] = l.kernel.astype(store_dtype)
+            if l.bias is not None:
+                arrays[f"bias_{i}"] = l.bias.astype(store_dtype)
+        np.savez(path, **arrays)
+
+    @staticmethod
+    def load_npz(path: str) -> "NifWeights":
+        """Load weights written by save_npz (bit-identical arrays)."""
+        with np.load(path, allow_pickle=False) as f:
+            desc = json.loads(str(f["layers"]))
+            layers = [
+                NifLayer(
+                    name=d["name"],
+                    kernel=f[f"kernel_{i}"],
+                    bias=f[f"bias_{i}"] if d["use_bias"] else None,
+                    activation=d["activation"],
+                    dtype=d["dtype"],
+                )
+                for i, d in enumerate(desc)
+            ]
         if not layers:
             raise ValueError(f"No Dense layers found in '{path}'.")
         return NifWeights(layers)
@@ -196,7 +241,7 @@ class NifParams(NamedTuple):
     """Pytree of device arrays for NIF inference.
 
     kernels/biases are stored in the compute dtype (bfloat16 by default -
-    the TPU analog of the reference's fp16 weights); decode runs in
+    the analog of the reference's fp16 weights); decode runs in
     float32 (NifModel.cpp:221-245 "Always do output decoding at fp32").
     """
 
@@ -240,13 +285,26 @@ def make_params(
     )
 
 
+def save_weights(asset_dir: str, weights: NifWeights) -> None:
+    """Write an asset's weights in both formats: converted.hdf5 (the
+    interchange format) and converted.npz (what the loader prefers)."""
+    weights.save_h5(os.path.join(asset_dir, "converted.hdf5"))
+    weights.save_npz(os.path.join(asset_dir, "converted.npz"))
+
+
 def load_nif_assets(asset_dir: str, dtype=jnp.bfloat16) -> tuple[NifParams, NifMetaData, NifWeights]:
-    """Load an 'assets.extra'-style directory: nif_metadata.txt + converted.hdf5.
+    """Load an 'assets.extra'-style directory: nif_metadata.txt plus
+    converted.npz, or converted.hdf5 where no .npz exists (a directory
+    from the reference).
 
     Mirrors PathTracerApp::loadNifModels (PathTracerApp.cpp:106-123).
     """
-    meta = NifMetaData.load(f"{asset_dir}/nif_metadata.txt")
-    weights = NifWeights.load_h5(f"{asset_dir}/converted.hdf5")
+    meta = NifMetaData.load(os.path.join(asset_dir, "nif_metadata.txt"))
+    npz = os.path.join(asset_dir, "converted.npz")
+    if os.path.exists(npz):
+        weights = NifWeights.load_npz(npz)
+    else:
+        weights = NifWeights.load_h5(os.path.join(asset_dir, "converted.hdf5"))
     return make_params(weights, meta, dtype), meta, weights
 
 
@@ -266,10 +324,63 @@ def fourier_features(u: jnp.ndarray, v: jnp.ndarray, embedding_dim: int) -> jnp.
     )
 
 
+# 3-term Cody-Waite split of 2*pi: _P1 + _P2 + _P3 == 2*pi exactly in
+# double, _P1/_P2 carry few mantissa bits so k*_P1 / k*_P2 are exact in
+# f32 for the k <= ~2^11 this encode produces (E <= 16).
+_P1 = 6.28125
+_P2 = 0.0019352436065673828
+_P3 = 6.357301884918343e-08
+_INV_2PI = 0.15915494309189535
+_SEED_STRIDE = 4  # re-seed the double-angle recurrence every 4 octaves
+
+
+def _sincos_reduced(x, j: int):
+    """Exact-seeded sin/cos of 2^j * x: the f32 angle is exact (power-of
+    -two scale of an exact operand), Cody-Waite reduces it into
+    [-pi, pi] with no precision loss, and the transcendentals run on
+    the reduced residue."""
+    theta = x * float(2 ** j)
+    k = jnp.round(theta * _INV_2PI)
+    r = ((theta - k * _P1) - k * _P2) - k * _P3
+    return jnp.sin(r), jnp.cos(r)
+
+
+def nif_encode(u, v, embedding_dim: int, compute_dtype):
+    """Feature-major Fourier features -> (4E, B), the int8 chain's
+    encode (models/quant.py).
+
+    Same rows as fourier_features ([sin(u 2^j) | sin(v 2^j) |
+    cos(u 2^j) | cos(v 2^j)] of uv' = 2(uv - 1)), built by a re-seeded
+    double-angle recurrence: octaves j = 0, 4, 8, ... are evaluated
+    exactly via _sincos_reduced, the octaves in between by
+    sin 2x = 2 sin x cos x, cos 2x = 1 - 2 sin^2 x.  The recurrence
+    alone would drift ~2^j ulps (the doubling map is chaotic); the
+    re-seeding bounds the error at ~2^(_SEED_STRIDE-1) ulp.
+    """
+    uu = 2.0 * (u - 1.0)  # (B,) - exact: u in [0,1], Sterbenz + *2
+    vv = 2.0 * (v - 1.0)
+
+    def octaves(x):
+        ss, cc = [], []
+        for j in range(embedding_dim):
+            if j % _SEED_STRIDE == 0:
+                s, c = _sincos_reduced(x, j)
+            else:
+                s, c = ss[-1], cc[-1]
+                s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+            ss.append(s)
+            cc.append(c)
+        return ss, cc
+
+    sus, cus = octaves(uu)
+    svs, cvs = octaves(vv)
+    return jnp.stack(sus + svs + cus + cvs, axis=0).astype(compute_dtype)
+
+
 def nif_apply(params: NifParams, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Run NIF inference for a batch of (u, v) coords -> (P, 3) float32.
 
-    One big batched matmul chain on the MXU; skip-concat of the input
+    One big batched matmul chain; skip-concat of the input
     features is auto-detected from layer shapes exactly like the
     reference (NifModel.cpp:303-309).  Output is in the network's native
     channel order (callers reverse for RGB, codelets.cpp:377-378).
@@ -291,23 +402,15 @@ def nif_apply(params: NifParams, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 def analyse_nif(weights: NifWeights, sample_count: int) -> dict:
     """FLOPs / parameter report (NifModel::analyseModel, NifModel.cpp:122-144).
 
-    ``flops`` counts useful (model) multiply-adds; ``padded_flops`` counts
-    the MXU-issued work in the feature-major kernel layout (activations
-    ``(features, batch)``, batch on the 128-lane axis): the contraction
-    dimension (layer input) pads to the MXU's 128 rows, the output
-    dimension rides the sublane axis and pads to 8.  This model reconciles
-    with the measured in-kernel NIF time to ~2% on v5e (docs/PERF.md),
-    unlike a both-dims-128 model which over-counts partial output tiles.
+    ``flops`` counts useful (model) multiply-adds plus bias adds.
     """
     flops = 0
-    padded = 0
     param_bytes = 0
     for l in weights.layers:
         itemsize = 2 if l.dtype == "float16" else 4
         param_bytes += l.kernel.size * itemsize
         fan_in, fan_out = l.kernel.shape
         layer_flops = 2 * fan_in * fan_out
-        padded += 2 * (-(-fan_in // 128) * 128) * (-(-fan_out // 8) * 8)
         if l.bias is not None:
             param_bytes += l.bias.size * itemsize
             layer_flops += l.bias.shape[0]
@@ -317,7 +420,6 @@ def analyse_nif(weights: NifWeights, sample_count: int) -> dict:
         "hidden_size": weights.layers[0].kernel.shape[1],
         "batch_size": sample_count,
         "flops": flops * sample_count,
-        "padded_flops": padded * sample_count,
         "parameters_kib": param_bytes / 1024.0,
     }
 
@@ -337,9 +439,8 @@ def make_synthetic_nif(
     (the reference ships metadata but not weights).  skip_layer inserts a
     hidden layer whose input width is hidden + 4*embedding_dim so the
     skip-concat code path is exercised.  ``hidden`` may be a per-layer
-    width list (MXU-shaped mixed-width nets; every inference path
-    re-detects the skip from layer shapes, so variable widths need no
-    other support).
+    width list (mixed-width nets; every inference path re-detects the
+    skip from layer shapes, so variable widths need no other support).
     """
     if isinstance(key, int):
         key = jax.random.key(key)

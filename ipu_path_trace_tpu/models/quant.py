@@ -1,21 +1,18 @@
 """Post-training int8 quantization of the NIF matmul chain.
 
-The megastep is ~84% NIF matmul already running at >=91% of the v5e's
-bf16 roofline (docs/PERF.md "Where the time goes"), so the one
-remaining arithmetic lever is the MXU's int8 mode, which doubles peak
-throughput (measured 1.59x end-to-end on the 6x320 chain,
-docs/QUANT.json).  This module turns a loaded NIF into the int8 form
-the kernels consume - the reference's precision-for-speed discipline
-(fp16 weights + half partials, PathTracerApp.cpp:140-145,821-822)
-taken one step further than its hardware could.
+The render step is dominated by the NIF matmul chain, and int8 tensor
+arithmetic has twice the peak rate of bf16.  This module turns a loaded
+NIF into an int8 form (--nif-precision int8) - the reference's
+precision-for-speed discipline (fp16 weights + half partials,
+PathTracerApp.cpp:140-145,821-822) taken one step further than its
+hardware could.
 
 Scheme (all symmetric, zero-point 0):
 
 * **Weights**: per-output-channel scales sw[oc] = absmax(w[:, oc])/127.
   Per-channel roughly halves weight quantisation error vs per-tensor
-  and costs the kernel nothing - the accumulator multiplier becomes an
-  (out, 1) VMEM vector instead of a scalar, the same VPU broadcast
-  either way (measured equal, docs/QUANT.json int8_perchan).
+  at no extra cost - the accumulator multiplier becomes an (out,)
+  vector instead of a scalar, the same broadcast either way.
 * **Fourier features**: exactly in [-1, 1], so their scale is the
   CONSTANT 1/127 - no calibration, and the skip-concat rows keep full
   precision relative to their range.
@@ -29,24 +26,23 @@ Scheme (all symmetric, zero-point 0):
   resolution (+6 dB on the activation-quantisation noise floor).  The
   zero point folds EXACTLY into the next layer's bias - for
   x ~= (q + 128) * s the dot contributes s*128*sum_i w[:, i], a
-  per-output-channel constant - so the kernels pay nothing: the only
+  per-output-channel constant - so the chain pays nothing: the only
   arithmetic change is the requant's -128 shift.
 * **Skip layer**: runs as TWO dots (trunk columns x activation scale,
   feature columns x 1/127) so each operand keeps its own scale; the
-  total contraction width is unchanged, so MXU cost is identical.
+  total contraction width is unchanged, so the matmul cost is identical.
 * **Head**: int8 dot -> i32 -> f32 multiplier; the decode
   (y*max + mean, exp) stays f32 - the HDR range never touches int8.
 
 The quantised forward is pure integer dots + per-element f32 ops, so
-given the SAME int8 features the XLA twin below and the Pallas kernels
-(ops/nif_pallas.py, ops/megastep_pallas.py) agree bitwise - zero
-padding to the MXU tiles never changes an integer accumulator
-(tests/test_quant.py pins this).  End-to-end the paths differ only
-through the f32 Fourier encode: the double-angle recurrence doubles a
-1-ulp FMA-contraction difference per octave (the doubling map is
-chaotic), so features can land on opposite sides of the round() tie in
-different compile contexts.  End-to-end parity is therefore
-tolerance-based, exactly like the bf16 kernel's (tests/test_nif_pallas.py).
+given the SAME int8 features every backend computes the same integers -
+and zero padding never changes an integer accumulator
+(tests/test_quant.py pins this).  Backends differ only through the f32
+Fourier encode: the double-angle recurrence (models/nif.nif_encode)
+doubles a 1-ulp FMA-contraction difference per octave (the doubling
+map is chaotic), so features can land on opposite sides of the round()
+tie on different backends.  Cross-backend parity is therefore
+statistical (chip_smoke.py compares the card with the CPU).
 """
 
 from __future__ import annotations
@@ -57,7 +53,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .nif import NifMetaData, NifWeights
+from .nif import NifMetaData, NifWeights, nif_encode
 
 QMAX = 127.0  # symmetric grid: weights and Fourier features
 AQMAX = 255.0  # asymmetric activation grid: [0, a_i] -> [-128, 127]
@@ -73,8 +69,7 @@ class QuantNifParams(NamedTuple):
     [-128, 127] grid (the +128 zero point is pre-folded into
     biases[i+1], module docstring).  The skip layer adds
     accf * mult_skip for its feature columns.  Shapes are the REAL
-    model shapes; kernels pad contraction dims to the MXU's int8 tile
-    at trace time (zero columns = exact).
+    model shapes.
     """
 
     kernels: tuple  # int8 (in, out) per layer (feature cols last at skip)
@@ -104,8 +99,8 @@ def _f32_chain_activations(weights: NifWeights, feats: np.ndarray,
                            chunk: int = 1 << 15):
     """f32 forward over (P, 4E) features; returns the per-hidden-layer
     post-ReLU output absmax (the activation calibration).  Jitted and
-    chunked so a reference-scale calibration lattice takes ~1 s on the
-    attached device instead of minutes of single-threaded NumPy."""
+    chunked so a reference-scale calibration lattice runs on the
+    attached device instead of in single-threaded NumPy."""
     params = [
         (jnp.asarray(l.kernel, jnp.float32),
          jnp.asarray(l.bias if l.bias is not None
@@ -137,10 +132,8 @@ def _f32_chain_activations(weights: NifWeights, feats: np.ndarray,
 
 def calibration_features(embedding_dim: int, grid=(256, 512)) -> np.ndarray:
     """Fourier features over a uniform UV lattice covering the input
-    domain, with the KERNELS' double-angle encode (ops/nif_pallas.py
-    nif_encode) so calibration sees the exact values inference will."""
-    from ..ops.nif_pallas import nif_encode
-
+    domain, with the int8 chain's double-angle encode (nif_encode) so
+    calibration sees the exact values inference will."""
     h, w = grid
     u = (np.arange(h, dtype=np.float32) + 0.5) / h
     v = (np.arange(w, dtype=np.float32) + 0.5) / w
@@ -154,8 +147,7 @@ def quantize_nif(
     weights: NifWeights, meta: NifMetaData, grid=(256, 512), amax=None
 ) -> QuantNifParams:
     """PTQ a loaded NIF: per-channel int8 weights + lattice-calibrated
-    activation scales (module docstring).  ~1 s on the host for the
-    canonical 6x320.  QAT'd nets pass the ``amax`` their fine-tune
+    activation scales (module docstring).  QAT'd nets pass the ``amax`` their fine-tune
     trained against (qat_finetune) so inference reuses those grids."""
     if amax is None:
         feats = calibration_features(meta.embedding_dimension, grid)
@@ -210,8 +202,7 @@ def quantize_nif(
 def quant_layer_t(x, feats, w_t, bias_c, mult_c, mult_skip_c, inv_next,
                   is_last: bool, is_skip: bool):
     """One int8 Dense stage, feature-major ((in, B) activations, (out,
-    in) weights) - shared VERBATIM by the XLA twin below and the Pallas
-    kernels, so the two paths are bitwise-identical by construction.
+    in) weights).
 
     ``x`` int8 (in, B); ``feats`` int8 (4E, B) for the skip dot;
     weight/bias/multiplier refs are already sliced to this layer.
@@ -242,13 +233,10 @@ def quant_layer_t(x, feats, w_t, bias_c, mult_c, mult_skip_c, inv_next,
 def quant_mlp_t(params: QuantNifParams, u, v):
     """Encode -> int8 chain -> f32 head output, feature-major.
 
-    Uses the kernels' double-angle encode (nif_encode) so the int8
-    feature quantisation - and therefore every integer in the chain -
-    matches the fused kernels bitwise.  Returns (3, B) f32 in network
-    channel order, BEFORE decode.
+    Uses the double-angle encode (nif_encode), the encode the
+    activation calibration saw.  Returns (3, B) f32 in network channel
+    order, BEFORE decode.
     """
-    from ..ops.nif_pallas import nif_encode
-
     feats_f = nif_encode(u, v, params.embedding_dim, jnp.float32)
     feats = jnp.clip(jnp.round(feats_f * QMAX), -QMAX, QMAX).astype(jnp.int8)
     skip = params.skip_layer
@@ -276,8 +264,7 @@ def nif_apply_quant(params: QuantNifParams, u, v) -> jnp.ndarray:
 # Quantisation-aware fine-tuning (QAT)
 # ------------------------------------------------------------------------
 #
-# PTQ alone fails the on-class ship gate (27.69 dB vs the canonical's
-# 36.30, docs/QUANT.json "quality"): the pretrained weights were never
+# PTQ alone loses on-class quality: the pretrained weights were never
 # asked to be robust to the int8 grids.  QAT re-fits them THROUGH the
 # exact inference quantiser with straight-through-estimator gradients,
 # so the optimiser absorbs the representable-grid error back into the
@@ -303,7 +290,7 @@ def fake_quant_apply(params, feats, skip_layer, amax):
 
     ``params`` is a list of (w, b) jnp arrays; ``amax`` a static tuple
     of per-hidden-layer floats.  The head's output stays f32, exactly
-    like the kernels (decode never touches int8).
+    like inference (decode never touches int8).
     """
     feats = _ste(feats, jnp.round(jnp.clip(feats, -1, 1) * QMAX) / QMAX)
     x = feats

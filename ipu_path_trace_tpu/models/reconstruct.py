@@ -24,6 +24,15 @@ from ..utils.logging import logger
 from .nif import NifParams, nif_apply
 
 
+def psnr_log(img: np.ndarray, ref: np.ndarray, eps: float = 1e-8) -> float:
+    """PSNR in the log-radiance domain (the NIF's training target)."""
+    a = np.log(np.maximum(img, 0.0) + eps)
+    b = np.log(np.maximum(ref, 0.0) + eps)
+    mse = float(np.mean((a - b) ** 2))
+    peak = float(b.max() - b.min())
+    return 10.0 * np.log10(peak * peak / mse)
+
+
 def uv_grid(height: int, width: int) -> tuple[np.ndarray, np.ndarray]:
     """Row-major UV grid exactly as makeGridCoordsUV (NifModel.cpp:474-490)."""
     rows, cols = np.meshgrid(

@@ -1,4 +1,4 @@
-"""Train a Neural Image Field from an equirect HDR image - in JAX, on TPU.
+"""Train a Neural Image Field from an equirect HDR image - in JAX.
 
 The reference consumes NIF models produced by an external keras trainer
 (the `train_command` recorded in nif_metadata.txt; the repo itself ships
@@ -23,8 +23,7 @@ Run:  python -m ipu_path_trace_tpu.models.train_nif <image.exr> <out_dir>
           [--layer-count 6] [--embedding-dimension 12]
           [--epochs N] [--batch-size 16384] [--train-samples N]
 
---layer-sizes trains MXU-shaped mixed-width nets (per-layer widths);
-see docs/PERF.md "mixed-width frontier" for how to choose them.
+--layer-sizes trains mixed-width nets (per-layer widths).
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ import jax.numpy as jnp
 import optax
 
 from ..utils.logging import logger
-from .nif import NifLayer, NifMetaData, NifWeights, fourier_features
+from .nif import NifLayer, NifMetaData, NifWeights, fourier_features, save_weights
 
 
 def encode_targets(image: np.ndarray, eps: float, log_tone_map: bool):
@@ -190,7 +189,7 @@ def train_nif(
 
 def save_assets(out_dir: str, weights: NifWeights, meta: NifMetaData, train_command) -> None:
     os.makedirs(out_dir, exist_ok=True)
-    weights.save_h5(os.path.join(out_dir, "converted.hdf5"))
+    save_weights(out_dir, weights)
     meta.save(os.path.join(out_dir, "nif_metadata.txt"), train_command)
     logger().info("Wrote NIF assets to %s", out_dir)
 
@@ -205,7 +204,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layer-size", type=int, default=320)
     p.add_argument("--layer-sizes", type=str, default=None,
                    help="comma-separated per-layer widths (overrides "
-                        "--layer-size; MXU-shaped mixed-width nets)")
+                        "--layer-size; mixed-width nets)")
     p.add_argument("--layer-count", type=int, default=6)
     p.add_argument("--embedding-dimension", type=int, default=12)
     p.add_argument("--skip-layer", type=int, default=3,

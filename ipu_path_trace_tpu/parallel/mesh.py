@@ -1,6 +1,6 @@
 """Multi-chip sharding of the render step over a device mesh.
 
-TPU-native replacement for the reference's per-IPU virtual graphs
+Replacement for the reference's per-IPU virtual graphs
 (reference: src/shard_utils.cpp:28-38, src/PathTracerApp.cpp:205-252):
 
   * "pixels" mesh axis: the worklist is sharded; each chip traces its
@@ -8,8 +8,12 @@ TPU-native replacement for the reference's per-IPU virtual graphs
     crosses chips - the exact design intent of the reference
     (PathTracerApp.cpp:205-207).
   * "samples" mesh axis: chips render the SAME pixels with different
-    sample streams; radiance/statistics are psum-reduced over ICI into
-    every replica's worklist copy (the film reduction).
+    sample streams; radiance/statistics are psum-reduced (an all-reduce
+    over the device interconnect, NVLink on a GPU host) into every
+    replica's worklist copy (the film reduction).
+
+``make_mesh`` takes the first N devices in order: on a host whose cards
+are joined all to all the layout needs no topology awareness.
 
 Environment-light weights (NIF) are replicated to every chip - one
 replica per chip, weights shared from the host exactly like the
@@ -28,7 +32,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..core.records import WorkBatch
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import render_step_impl
-from ..utils.logging import logger
 
 
 def parse_mesh_shape(mesh_shape: str, num_devices: int) -> tuple[int, int]:
@@ -87,8 +90,8 @@ def sharded_render_step_impl(
             scene_r, settings_r, cfg, work_local, key, env_r,
             sample_axis_index=jax.lax.axis_index("samples"),
         )
-        # Film reduction over the sample axis (psum over ICI): radiance
-        # sums, sample counts and path lengths all add.
+        # Film reduction over the sample axis (psum): radiance sums,
+        # sample counts and path lengths all add.
         reduce = lambda x: jax.lax.psum(x, "samples")
         return WorkBatch(
             u=work_local.u,
@@ -121,80 +124,8 @@ sharded_render_step = partial(jax.jit, static_argnames=("cfg", "mesh"))(
 )
 
 
-def sharded_adaptive_render_step_impl(
-    scene,
-    settings: RenderSettings,
-    cfg: StaticConfig,
-    work: WorkBatch,
-    lum2: jnp.ndarray,
-    step_key: jax.Array,
-    env,
-    mesh: Mesh,
-) -> tuple[WorkBatch, jnp.ndarray]:
-    """Adaptive render step (render/adaptive.py) sharded over the mesh.
-
-    Each pixel shard runs its own controller on its LOCAL accumulated
-    moments - budgets need no collectives, and every chip targets the
-    same per-step total (G_local * samples_per_step; exact when no
-    block hits the cap, slightly under otherwise - compute_budgets),
-    so chips stay in near-lockstep while samples redistribute within
-    each chip.  On the
-    samples axis the replicas hold identical psum'd moments, therefore
-    compute identical budgets, and their decorrelated contributions
-    psum-reduce exactly like the uniform step's.
-    """
-    from ..render.adaptive import adaptive_render_step_impl
-
-    n_px = mesh.shape["pixels"]
-    if int(work.u.shape[0]) % n_px:
-        raise ValueError(
-            f"Worklist size {int(work.u.shape[0])} not divisible by pixel-axis size {n_px}."
-        )
-
-    def local_step(scene_r, settings_r, env_r, work_local, lum2_local, key):
-        key = jax.random.fold_in(key, jax.lax.axis_index("pixels"))
-        key = jax.random.fold_in(key, jax.lax.axis_index("samples"))
-        out, l2 = adaptive_render_step_impl(
-            scene_r, settings_r, cfg, work_local, lum2_local, key, env_r,
-            sample_axis_index=jax.lax.axis_index("samples"),
-        )
-        reduce = lambda x: jax.lax.psum(x, "samples")
-        return (
-            WorkBatch(
-                u=work_local.u,
-                v=work_local.v,
-                r=work_local.r + reduce(out.r - work_local.r),
-                g=work_local.g + reduce(out.g - work_local.g),
-                b=work_local.b + reduce(out.b - work_local.b),
-                sample_count=work_local.sample_count
-                + reduce(out.sample_count - work_local.sample_count),
-                path_length=work_local.path_length
-                + reduce(out.path_length - work_local.path_length),
-            ),
-            lum2_local + reduce(l2 - lum2_local),
-        )
-
-    shard = P("pixels")
-    repl = P()
-    work_specs = WorkBatch(*([shard] * len(work)))  # type: ignore[arg-type]
-    spec_of = lambda tree: jax.tree.map(lambda _: repl, tree)
-    fn = jax.shard_map(
-        local_step,
-        mesh=mesh,
-        in_specs=(spec_of(scene), spec_of(settings), spec_of(env), work_specs,
-                  shard, repl),
-        out_specs=(work_specs, shard),
-        check_vma=False,
-    )
-    return fn(scene, settings, env, work, lum2, step_key)
-
-
-sharded_adaptive_render_step = partial(
-    jax.jit, static_argnames=("cfg", "mesh")
-)(sharded_adaptive_render_step_impl)
-
-
-def make_step_fn(cfg: StaticConfig, mesh: Mesh | None = None, rng_impl: str = "auto"):
+def make_step_fn(cfg: StaticConfig, mesh: Mesh | None = None,
+                 rng_impl: str = "threefry2x32"):
     """Build the jitted render-step callable for a config + optional mesh.
 
     The static config (and mesh) are closed over so the returned function
@@ -206,17 +137,13 @@ def make_step_fn(cfg: StaticConfig, mesh: Mesh | None = None, rng_impl: str = "a
     words.  AOT callers MUST pass raw data: a typed-key argument makes the
     deserialised program fail at call time (Shardy rejects the replicated
     sharding on the opaque key - rank 0 spec vs rank 1 key data), so the
-    wrap happens inside the traced function with a statically resolved
-    ``rng_impl``.
+    wrap happens inside the traced function with the static ``rng_impl``.
     """
-    from ..render.wavefront import resolve_rng_impl
-
-    impl = resolve_rng_impl(rng_impl)
 
     def as_key(k):
         if jnp.issubdtype(k.dtype, jax.dtypes.prng_key):
             return k
-        return jax.random.wrap_key_data(k, impl=impl)
+        return jax.random.wrap_key_data(k, impl=rng_impl)
 
     if mesh is None:
 
@@ -233,49 +160,10 @@ def make_step_fn(cfg: StaticConfig, mesh: Mesh | None = None, rng_impl: str = "a
     return jax.jit(fn)
 
 
-def make_adaptive_step_fn(cfg: StaticConfig, mesh: Mesh | None = None,
-                          rng_impl: str = "auto"):
-    """make_step_fn's analog for the adaptive sampler (render/adaptive.py).
-
-    Signature: fn(scene, settings, work, lum2, step_key, env)
-               -> (WorkBatch, lum2) - same raw-key contract as
-    make_step_fn so the program AOT-exports identically.
-    """
-    from ..render.adaptive import adaptive_render_step_impl
-    from ..render.wavefront import resolve_rng_impl
-
-    impl = resolve_rng_impl(rng_impl)
-
-    def as_key(k):
-        if jnp.issubdtype(k.dtype, jax.dtypes.prng_key):
-            return k
-        return jax.random.wrap_key_data(k, impl=impl)
-
-    if mesh is None:
-
-        def fn(scene, settings, work, lum2, step_key, env):
-            return adaptive_render_step_impl(
-                scene, settings, cfg, work, lum2, as_key(step_key), env)
-
-    else:
-
-        def fn(scene, settings, work, lum2, step_key, env):
-            return sharded_adaptive_render_step_impl(
-                scene, settings, cfg, work, lum2, as_key(step_key), env, mesh)
-
-    return jax.jit(fn)
-
-
 def shard_work(work: WorkBatch, mesh: Mesh) -> WorkBatch:
     """Place worklist arrays with the pixel sharding (donation-friendly)."""
     sharding = NamedSharding(mesh, P("pixels"))
     return WorkBatch(*(jax.device_put(x, sharding) for x in work))
-
-
-def shard_array(x, mesh: Mesh):
-    """Place a per-record array (e.g. the adaptive lum2 moments) with the
-    same pixel sharding as the worklist."""
-    return jax.device_put(x, NamedSharding(mesh, P("pixels")))
 
 
 def replicate(tree, mesh: Mesh):

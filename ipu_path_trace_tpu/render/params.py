@@ -1,7 +1,7 @@
 """Render parameters, split by compilation behaviour.
 
-StaticConfig changes recompile the step (shapes / loop bounds / kernel
-choice); RenderSettings are traced scalars streamed to the device each
+StaticConfig changes recompile the step (shapes / loop bounds /
+sampler); RenderSettings are traced scalars streamed to the device each
 step, the analog of the reference's runtime-tunable StreamableTensors
 (reference: src/PathTracerApp.hpp:107-115 - seed, aa-scale, fov, azimuth,
 sample limit).
@@ -21,41 +21,9 @@ class StaticConfig(NamedTuple):
     height: int = 256
     max_path_length: int = 10  # --max-path-length
     aa_noise_type: str = "normal"  # --aa-noise-type
-    use_pallas: bool = True  # fused Pallas kernels (NIF env light; TPU only)
-    # One-kernel-per-step fusion (sample loop + trace + NIF with VPU/MXU
-    # overlap, ops/megastep_pallas.py); off = per-sample kernel pair:
-    use_fused_step: bool = True
-    # Deterministic-replay override: > 0 runs the PRODUCTION Pallas
-    # kernels in host-noise mode with the value giving the STATIC
-    # per-step sample count (it overrides the dynamic
-    # settings.samples_per_step; callers should keep the two equal).
-    # The noise is derived from the step key with the exact fold_in
-    # schedule of the XLA wavefront path, so renders replay the same
-    # streams the tests' oracles do - on ANY backend: the real kernel
-    # on TPU, the emulated (interpret) kernel elsewhere, including
-    # inside shard_map on the virtual CPU mesh (the IPUModel analog for
-    # the kernel layer, reference: src/ipu_utils.hpp:78-86).
-    pallas_interpret: int = 0
-    # Measurement-only knob for --device-timing's in-kernel phase split
-    # (utils/devtime.py): '' = real kernel; 'nif' stubs the NIF matmuls,
-    # 'trace' stubs the bounce loop, 'both' leaves the skeleton.  The
-    # cycle-counter analog of src/PathTracerApp.cpp:438-462.
-    megastep_stub: str = ""
-    # Adaptive per-block sampling bounds (render/adaptive.py; only read
-    # by the adaptive step).  Budgets are clipped to
-    # [adaptive_min, adaptive_max_factor * samples_per_step]:
-    adaptive_min: int = 8
-    adaptive_max_factor: float = 16.0
-    # Dead-block env-skip: elide the whole NIF matmul chain for kernel
-    # blocks whose escape weights are all zero (exact identity; the MXU
-    # analog of the trace's dead-block early-out).  Measured 7.55x on a
-    # fully enclosed scene but ~1.5% overhead on open scenes where no
-    # block ever dies (docs/ENVSKIP.json) - so opt-in per scene
-    # (--env-skip for interiors).
-    env_skip: bool = False
     # Sample-stream generator: "prng" = independent counter-based
-    # uniforms (threefry on host, hardware PRNG in the kernels - the
-    # analog of the reference's poprand pools, PathTracerApp.cpp:266-299);
+    # uniforms (the analog of the reference's poprand pools,
+    # PathTracerApp.cpp:266-299);
     # "sobol" = hash-based Owen-scrambled Sobol (render/qmc.py) on the
     # first ``sobol_dims`` path dimensions with prng padding beyond.
     sampler: str = "prng"
@@ -83,7 +51,7 @@ class RenderSettings(NamedTuple):
     stop_prob: jnp.ndarray  # russian roulette stop probability
     roulette_depth: jnp.ndarray  # bounces before roulette starts (int32)
     samples_per_step: jnp.ndarray  # on-device sample loop count (int32)
-    # Thin-lens depth of field (TPU-native addition; aperture 0 = the
+    # Thin-lens depth of field (an addition; aperture 0 = the
     # reference's pinhole camera).  Runtime-tunable like the rest:
     aperture: jnp.ndarray  # lens radius in scene units
     focal_distance: jnp.ndarray  # focus-plane distance along -z

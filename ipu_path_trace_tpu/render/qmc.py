@@ -1,6 +1,6 @@
 """Hash-based Owen-scrambled Sobol sampling (the ``--sampler sobol`` path).
 
-A TPU-native extension BEYOND the reference, which consumes plain
+An extension BEYOND the reference, which consumes plain
 pseudorandom pools for every dimension (reference:
 src/PathTracerApp.cpp:266-299, poprand uniforms).  Monte-Carlo RMSE
 converges as N^-0.5 with independent uniforms; an Owen-scrambled Sobol
@@ -22,23 +22,17 @@ Construction (Burley, "Practical Hash-based Owen Scrambling", JCGT 2020):
   * nested_uniform_scramble(x) = reverse_bits(laine_karras(reverse_bits(x)))
     with the Laine-Karras hash as the per-level permutation.
 
-Everything here is 32-bit integer math on jnp arrays, written to run
-IDENTICALLY on the host (noise pre-generation, the XLA wavefront) and
-inside the Pallas kernels (ops/trace_pallas.py, ops/megastep_pallas.py) -
-same ints in, same bits out - so the kernels' hardware path can be
-validated bitwise against host-generated noise.  Mosaic-imposed shapes:
-only constant shift amounts, no uint32<->f32 casts (the float conversion
-mirrors ops/trace_pallas.make_uniform_fn's (top24 + 1) * 2^-24 form, in
-(0, 1]).
+Everything here is 32-bit integer math on jnp arrays - same ints in,
+same bits out on every backend - with only constant shift amounts; the
+float conversion is (top24 + 1) * 2^-24, in (0, 1].
 
 Direction numbers (Joe & Kuo 2008, via scipy) are baked as Python ints
 in render/_sobol_dirs.py - plain data, no runtime scipy dependency.
 
 The per-pixel sample index is the worklist's own per-record
 ``sample_count`` (reference TraceRecord sampleCount semantics), so the
-sequence continues seamlessly across progressive steps, checkpoints,
-restarts AND per-block adaptive budgets (render/adaptive.py) - a lane
-whose block received fewer samples simply resumes at its own index.
+sequence continues seamlessly across progressive steps, checkpoints
+and restarts - each lane resumes at its own index.
 """
 
 from __future__ import annotations
@@ -132,11 +126,9 @@ def sobol_masks(h: jnp.ndarray) -> tuple:
     0xFFFFFFFF when bit 31-k of h is set; 0 - 1 wraps).  They depend on
     the shuffled index alone, NOT the dimension, so every dimension's
     sobol_bits accumulation shares one set - computing them once per
-    sample instead of per dimension cuts the dominant in-kernel QMC
-    cost ~2.4x (32x[shift+and+sub] amortised across all dims).  Pure
-    uint32 ops throughout: Mosaic has no integer converts to/from
-    uint32 vectors, and this must run unchanged inside the Pallas
-    kernels."""
+    sample instead of per dimension amortises the dominant QMC cost
+    (32x[shift+and+sub]) across all dims.  Pure uint32 ops
+    throughout."""
     one = jnp.uint32(1)
     zero = jnp.uint32(0)
     return tuple(zero - ((h >> (31 - k)) & one) for k in range(32))
@@ -178,9 +170,7 @@ def owen_bits(idx: jnp.ndarray, pix_seed: jnp.ndarray, key, dim: int) -> jnp.nda
 
 
 def bits_to_unit(bits: jnp.ndarray) -> jnp.ndarray:
-    """uint32 bits -> float32 in (0, 1], 24-bit mantissa - the exact
-    conversion of ops/trace_pallas.make_uniform_fn (host form; the
-    kernels bitcast via pltpu instead of astype)."""
+    """uint32 bits -> float32 in (0, 1], 24-bit mantissa."""
     top24 = (bits >> 8).astype(jnp.int32)
     return (top24.astype(jnp.float32) + 1.0) * (1.0 / (1 << 24))
 
@@ -191,10 +181,8 @@ def sobol_uniforms(
     key,  # uint32 scalar render-wide sobol key (static across steps!)
     dims: range | tuple,  # static dimension numbers to emit
 ) -> list[jnp.ndarray]:
-    """The host/XLA entry point: one (n,) float32 vector in (0, 1] per
-    requested dimension.  The Pallas kernels inline the same helpers
-    (sharing scrambled_index_word across dims) instead of calling this,
-    so per-bounce dims can be computed lazily inside the bounce unroll.
+    """One (n,) float32 vector in (0, 1] per requested dimension
+    (scrambled_index_word and the bit masks are shared across dims).
     """
     ps = pixel_seed(pixel_id, key)
     h = scrambled_index_word(idx, ps)

@@ -16,8 +16,8 @@ the whole pixel batch:
   * escaped rays record direction + throughput; the environment light
     (constant / texture / NIF MLP) is applied afterwards to the whole
     batch at once - the deferral the reference implements with
-    Pre/PostProcessEscapedRays (codelets.cpp:312-385), which on TPU turns
-    the NIF into one large MXU matmul
+    Pre/PostProcessEscapedRays (codelets.cpp:312-385), which turns the
+    NIF into one large batched matmul chain
   * the on-device sample loop (popops::countedForLoop,
     PathTracerApp.cpp:466-468) is a lax.scan over sample indices.
 
@@ -63,9 +63,8 @@ class QmcCtx(NamedTuple):
     ``base`` is each lane's accumulated sample count (the worklist's own
     sampleCount field), so sample s of this step draws Sobol point
     base + s of the lane's scrambled sequence - continuous across
-    progressive steps, restarts, checkpoints and per-block adaptive
-    budgets.  ``key`` is the render-wide scramble key
-    (settings.sobol_key).
+    progressive steps, restarts and checkpoints.  ``key`` is the
+    render-wide scramble key (settings.sobol_key).
     """
 
     pixel_id: jnp.ndarray  # (P,) int32 v * width + u
@@ -112,24 +111,15 @@ def apply_thin_lens(d: Vec3, settings, l1, l2) -> tuple[Vec3, Vec3]:
     return o.where(dof, Vec3.zeros(lx.shape)), new_d.where(dof, d)
 
 
-def resolve_rng_impl(rng_impl: str = "auto") -> str:
-    """``auto`` -> hardware RngBitGenerator on TPU, threefry elsewhere."""
-    if rng_impl == "auto":
-        return "rbg" if jax.default_backend() == "tpu" else "threefry2x32"
-    return rng_impl
-
-
-def make_base_key(seed: int, rng_impl: str = "auto") -> jax.Array:
+def make_base_key(seed: int, rng_impl: str = "threefry2x32") -> jax.Array:
     """Base PRNG key for a render.
 
-    ``auto`` picks XLA's hardware RngBitGenerator (``rbg``) on TPU - the
-    threefry key schedule costs ~20% of the whole trace loop there - and
-    ``threefry2x32`` elsewhere, which is reproducible across backends and
-    is what the NumPy oracle replays (cpu/oracle.py).  Both are
-    counter-based, the TPU analog of poprand's per-tile streams
+    ``threefry2x32`` (the default) is reproducible across backends and
+    is what the NumPy oracle replays (cpu/oracle.py).  Every impl is
+    counter-based, the analog of poprand's per-tile streams
     (reference: src/PathTracerApp.cpp:266-299).
     """
-    return jax.random.key(seed, impl=resolve_rng_impl(rng_impl))
+    return jax.random.key(seed, impl=rng_impl)
 
 
 def sample_key(base_key: jax.Array, sample_idx) -> jax.Array:
@@ -174,9 +164,8 @@ def bounce_body(
     """One wavefront bounce over the whole batch with masked lanes.
 
     ``rnd`` is (4, n): [rr, bsdf_u1, bsdf_u2, fresnel].  Shared by the
-    lax.scan driver (trace_one_sample), the injected-uniforms driver
-    (trace_sample_with_uniforms), and mirrored inside the fused Pallas
-    trace kernel (ops/trace_pallas.py).
+    lax.scan driver (trace_one_sample) and the injected-uniforms driver
+    (trace_sample_with_uniforms).
     """
     n = state.o.x.shape[0]
     rr_rand, u1, u2, fresnel_rand = rnd[0], rnd[1], rnd[2], rnd[3]
@@ -247,6 +236,21 @@ def bounce_body(
     )
 
 
+def draw_aa_jitter(u1, u2, aa_noise_type: str):
+    """AA jitter pair from two uniforms in (0, 1]: uniform (2u - 1),
+    normal (Box-Muller) or truncated-normal clipped at +/-3 sigma - the
+    distributions of core/camera.aa_noise."""
+    if aa_noise_type == "uniform":
+        return 2.0 * u1 - 1.0, 2.0 * u2 - 1.0
+    r = jnp.sqrt(-2.0 * jnp.log(u1))
+    z1 = r * jnp.cos((2.0 * jnp.pi) * u2)
+    z2 = r * jnp.sin((2.0 * jnp.pi) * u2)
+    if aa_noise_type == "truncated-normal":
+        z1 = jnp.clip(z1, -3.0, 3.0)
+        z2 = jnp.clip(z2, -3.0, 3.0)
+    return z1, z2
+
+
 def sample_noise(
     skey: jax.Array,
     n: int,
@@ -254,18 +258,16 @@ def sample_noise(
     qmc_ctx: QmcCtx | None = None,
     sample_idx=None,
 ) -> jnp.ndarray:
-    """(4 + 4L, n) noise for one sample in the Pallas kernels' host-noise
-    layout: [0:2] AA jitter (already distributed), [2:4] lens uniforms,
-    [4+4b:8+4b] bounce-b uniforms.
+    """(4 + 4L, n) noise for one sample in the injected-uniforms layout
+    (trace_sample_with_uniforms): [0:2] AA jitter (already distributed),
+    [2:4] lens uniforms, [4+4b:8+4b] bounce-b uniforms.
 
     prng mode draws with the exact fold_in schedule of
-    trace_one_sample's XLA branch, so host-noise kernel runs replay the
-    same streams.  sobol mode (qmc_ctx given; sample_idx = the sample's
-    index within the step) fills the first sobol_dims_used(cfg) rows
-    from each lane's Owen-Sobol sequence at index base + sample_idx
-    (render/qmc.py) and pads the rest with the prng schedule - the
-    identical integer math the kernels run in-kernel, so hardware-mode
-    sobol renders replay these rows bitwise.
+    trace_one_sample's scan branch, so both drivers replay the same
+    streams.  sobol mode (qmc_ctx given; sample_idx = the sample's index
+    within the step) fills the first sobol_dims_used(cfg) rows from each
+    lane's Owen-Sobol sequence at index base + sample_idx (render/qmc.py)
+    and pads the rest with the prng schedule.
     """
     qd = sobol_dims_used(cfg) if qmc_ctx is not None else 0
     if qd == 0:
@@ -274,54 +276,18 @@ def sample_noise(
         bounce = [bounce_uniforms(skey, b, n) for b in range(cfg.max_path_length)]
         return jnp.concatenate([aa, lens, *bounce], axis=0)
 
-    from ..ops.trace_pallas import draw_aa_jitter
     from .qmc import sobol_uniforms
 
     idx = qmc_ctx.base + jnp.int32(0 if sample_idx is None else sample_idx)
     us = sobol_uniforms(idx, qmc_ctx.pixel_id, qmc_ctx.key, range(qd))
-    # AA rows carry the TRANSFORMED jitter; the Box-Muller / clip / 2u-1
-    # transform is the kernels' own (trace_pallas.draw_aa_jitter), so the
-    # in-kernel sobol path computes the identical values:
-    a1, a2 = draw_aa_jitter(lambda k: us[:k], cfg.aa_noise_type)
+    # AA rows carry the TRANSFORMED jitter (Box-Muller / clip / 2u-1):
+    a1, a2 = draw_aa_jitter(us[0], us[1], cfg.aa_noise_type)
     sobol_rows = jnp.stack([a1, a2, us[2], us[3], *us[4:qd]])  # (qd, n)
     prng_tail = [
         bounce_uniforms(skey, b, n)  # (4, n) each
         for b in range((qd - 4) // 4, cfg.max_path_length)
     ]
     return jnp.concatenate([sobol_rows, *prng_tail], axis=0)
-
-
-def step_noise(
-    step_key: jax.Array,
-    n: int,
-    cfg: StaticConfig,
-    samples: int | None = None,
-    qmc_ctx: QmcCtx | None = None,
-) -> jnp.ndarray:
-    """(S, 4 + 4L, n) host noise for S = ``samples`` (default
-    cfg.pallas_interpret) samples."""
-    return jnp.stack(
-        [
-            sample_noise(sample_key(step_key, s), n, cfg, qmc_ctx, s)
-            for s in range(cfg.pallas_interpret if samples is None else samples)
-        ]
-    )
-
-
-# Interpret-mode Pallas blocks stay small: block size only affects
-# padding waste in host-noise mode (per-block PRNG seeding is off), and
-# the tests' mesh shards are tiny.
-_INTERPRET_BLOCK = 256
-
-
-def _kernel_sobol(cfg, ctx: QmcCtx, sample_idx):
-    """(pixel_id, idx, key_bits) operands for the kernels' in-kernel
-    sobol mode; key rides SMEM as its int32 bit pattern."""
-    idx = ctx.base + jnp.int32(0 if sample_idx is None else sample_idx)
-    key_bits = jax.lax.bitcast_convert_type(
-        jnp.asarray(ctx.key, jnp.uint32), jnp.int32
-    )
-    return ctx.pixel_id, idx, key_bits
 
 
 def trace_sample_with_uniforms(
@@ -334,12 +300,8 @@ def trace_sample_with_uniforms(
     lens: jnp.ndarray,  # (2, P) lens-disk uniforms in [0, 1)
     uniforms: jnp.ndarray,  # (L, 4, P) per-bounce uniforms
 ) -> _BounceState:
-    """Statically-unrolled trace with injected randomness.
-
-    The exact-parity twin of the fused Pallas kernel's host-RNG mode
-    (ops/trace_pallas.py) - both consume identical noise, so results
-    match to float-associativity.
-    """
+    """Statically-unrolled trace with injected randomness (the sobol
+    sampler's driver and the oracle tests' stream-replay entry point)."""
     c = cols + settings.aa_scale * aa[0]
     r = rows + settings.aa_scale * aa[1]
     d = pixel_to_ray(c, r, cfg.width, cfg.height, settings.fov).normalized()
@@ -348,48 +310,6 @@ def trace_sample_with_uniforms(
     for i in range(cfg.max_path_length):
         state = bounce_body(scene, settings, state, uniforms[i], i)
     return state
-
-
-def dead_block_fraction(
-    scene: Scene,
-    settings: RenderSettings,
-    cfg: StaticConfig,
-    cols: jnp.ndarray,
-    rows: jnp.ndarray,
-    base_key: jax.Array,
-    n_samples: int,
-    block_size: int,
-) -> float:
-    """Fraction of kernel blocks whose escape weights are ALL zero.
-
-    The exact criterion the megastep's dead-block env-skip guard tests
-    per (block, sample) iteration (ops/megastep_pallas._env_contrib):
-    escape weights are path throughputs (>= 0), so a zero block sum
-    means the whole NIF matmul chain would be elided for that block.
-    Traced with the XLA twin (trace_sample_with_uniforms) on whatever
-    backend the caller placed ``scene``/``cols`` on - the app's auto
-    --env-skip probe runs it on the host CPU backend so the decision
-    never touches the TPU.  Padding lanes (the kernel pads the tail
-    block) escape nothing, matching the kernel's padded layout.
-    """
-    n = cols.shape[0]
-    nblk = -(-n // block_size)
-
-    @jax.jit
-    def one(skey):
-        noise = sample_noise(skey, n, cfg)
-        st = trace_sample_with_uniforms(
-            scene, settings, cfg, cols, rows, noise[0:2], noise[2:4],
-            noise[4:].reshape(cfg.max_path_length, 4, n))
-        w = st.esc_w.x + st.esc_w.y + st.esc_w.z
-        w = jnp.pad(w, (0, nblk * block_size - n))
-        return jnp.mean((w.reshape(nblk, block_size).sum(axis=1) == 0.0)
-                        .astype(jnp.float32))
-
-    total = 0.0
-    for s in range(n_samples):
-        total += float(one(sample_key(base_key, s)))
-    return total / max(1, n_samples)
 
 
 def trace_one_sample(
@@ -406,95 +326,48 @@ def trace_one_sample(
     """Trace one sample per worklist entry; returns (radiance, path_len)."""
     n = cols.shape[0]
 
-    sobol = cfg.sampler == "sobol" and qmc_ctx is not None
-    host_noise = cfg.pallas_interpret > 0
-    interp = host_noise and jax.default_backend() != "tpu"
-    pallas_on = cfg.use_pallas and (jax.default_backend() == "tpu" or interp)
-    if pallas_on:
-        # Fused megakernel: per-ray state stays in VMEM for the whole
-        # bounce loop (ops/trace_pallas.py).  Seeded per sample from the
-        # fold_in key so samples stay independent.  Host-noise mode
-        # (cfg.pallas_interpret > 0) replays the XLA branch's streams:
-        # the real kernel on TPU, the emulated kernel elsewhere.
-        from ..ops.trace_pallas import trace_sample_pallas
-
-        if host_noise:
-            state = trace_sample_pallas(
-                scene, settings, cols, rows,
-                noise=sample_noise(skey, n, cfg, qmc_ctx, sample_idx),
-                width=cfg.width, height=cfg.height,
-                max_path_length=cfg.max_path_length,
-                aa_noise_type=cfg.aa_noise_type,
-                block_size=_INTERPRET_BLOCK if interp else 4096,
-                interpret=interp,
+    # Named scopes label the device time of each phase in a profiler
+    # trace (bench.py's trace split reads them):
+    with jax.named_scope("trace"):
+        if cfg.sampler == "sobol" and qmc_ctx is not None:
+            # Owen-Sobol streams are pre-assembled in the injected-uniforms
+            # layout - one code path for the sampler and the oracle's
+            # stream replay.
+            noise = sample_noise(skey, n, cfg, qmc_ctx, sample_idx)
+            state = trace_sample_with_uniforms(
+                scene, settings, cfg, cols, rows,
+                noise[0:2], noise[2:4],
+                noise[4:].reshape(cfg.max_path_length, 4, n),
             )
         else:
-            seed = jax.random.bits(skey, (2,), jnp.uint32).astype(jnp.int32)
-            state = trace_sample_pallas(
-                scene, settings, cols, rows, seed,
-                sobol=_kernel_sobol(cfg, qmc_ctx, sample_idx) if sobol else None,
-                sobol_dims=sobol_dims_used(cfg) if sobol else 0,
-                width=cfg.width, height=cfg.height,
-                max_path_length=cfg.max_path_length,
-                aa_noise_type=cfg.aa_noise_type,
+            # --- ray generation (GenerateCameraRays, codelets.cpp:47-79) ---
+            kaa = jax.random.fold_in(skey, AA_TAG)
+            noise = aa_noise(kaa, (2, n), cfg.aa_noise_type)
+            c = cols + settings.aa_scale * noise[0]
+            r = rows + settings.aa_scale * noise[1]
+            d = pixel_to_ray(c, r, cfg.width, cfg.height, settings.fov).normalized()
+            lens = jax.random.uniform(jax.random.fold_in(skey, LENS_TAG), (2, n))
+            o, d = apply_thin_lens(d, settings, lens[0], lens[1])
+
+            state = initial_state(o, d, n)
+
+            def bounce(state: _BounceState, bounce_idx):
+                rnd = bounce_uniforms(skey, bounce_idx, n)
+                return bounce_body(scene, settings, state, rnd, bounce_idx), None
+
+            state, _ = jax.lax.scan(
+                bounce, state, jnp.arange(cfg.max_path_length, dtype=jnp.int32)
             )
-    elif sobol:
-        # Owen-Sobol streams are pre-assembled in the host-noise layout
-        # and consumed by the injected-uniforms driver - one code path
-        # for the XLA branch, the kernels' host-noise mode and the
-        # oracle's stream replay.
-        noise = sample_noise(skey, n, cfg, qmc_ctx, sample_idx)
-        state = trace_sample_with_uniforms(
-            scene, settings, cfg, cols, rows,
-            noise[0:2], noise[2:4],
-            noise[4:].reshape(cfg.max_path_length, 4, n),
-        )
-    else:
-        # --- ray generation (GenerateCameraRays, codelets.cpp:47-79) ---
-        kaa = jax.random.fold_in(skey, AA_TAG)
-        noise = aa_noise(kaa, (2, n), cfg.aa_noise_type)
-        c = cols + settings.aa_scale * noise[0]
-        r = rows + settings.aa_scale * noise[1]
-        d = pixel_to_ray(c, r, cfg.width, cfg.height, settings.fov).normalized()
-        lens = jax.random.uniform(jax.random.fold_in(skey, LENS_TAG), (2, n))
-        o, d = apply_thin_lens(d, settings, lens[0], lens[1])
 
-        state = initial_state(o, d, n)
-
-        def bounce(state: _BounceState, bounce_idx):
-            rnd = bounce_uniforms(skey, bounce_idx, n)
-            return bounce_body(scene, settings, state, rnd, bounce_idx), None
-
-        state, _ = jax.lax.scan(
-            bounce, state, jnp.arange(cfg.max_path_length, dtype=jnp.int32)
-        )
-
-    # --- deferred environment lighting (codelets.cpp:312-385) ---
-    from ..models.envlight import NifEnv
-
-    if pallas_on and isinstance(env, NifEnv):
-        # Fully fused: equirect + NIF + env-apply in one kernel
-        # (ops/nif_pallas._env_shade_kernel).
-        from ..ops.nif_pallas import nif_env_shade_pallas
-
-        if interp:
-            contribution = nif_env_shade_pallas(
-                env.params, state.esc_dir, state.esc_w, settings.azimuth,
-                block_size=_INTERPRET_BLOCK, interpret=True,
-            )
-        else:
-            contribution = nif_env_shade_pallas(
-                env.params, state.esc_dir, state.esc_w, settings.azimuth
-            )
-        return state.radiance + contribution, state.path_len
-
-    u, v = equirect_uv(state.esc_dir, settings.azimuth)
-    # Zero the non-escaped lanes like PreProcessEscapedRays does to avoid
-    # FP garbage (codelets.cpp:348-352):
-    u = jnp.where(state.escaped, u, 0.0)
-    v = jnp.where(state.escaped, v, 0.0)
-    env_rgb = eval_env(env, u, v, use_pallas=cfg.use_pallas)
-    radiance = state.radiance + state.esc_w.cwise(env_rgb)
+    with jax.named_scope("env_light"):
+        # --- deferred environment lighting (codelets.cpp:312-385) ---
+        u, v = equirect_uv(state.esc_dir, settings.azimuth)
+        # Zero the non-escaped lanes like PreProcessEscapedRays does to avoid
+        # FP garbage (codelets.cpp:348-352):
+        u = jnp.where(state.escaped, u, 0.0)
+        v = jnp.where(state.escaped, v, 0.0)
+        env_rgb = eval_env(env, u, v)
+        radiance = state.radiance + state.esc_w.cwise(env_rgb)
     return radiance, state.path_len
 
 
@@ -528,64 +401,6 @@ def render_step_impl(
     if qmc_ctx is not None:
         off = jnp.int32(sample_axis_index) * settings.samples_per_step.astype(jnp.int32)
         qmc_ctx = qmc_ctx._replace(base=qmc_ctx.base + off)
-
-    from ..models.envlight import NifEnv
-
-    host_noise = cfg.pallas_interpret > 0
-    interp = host_noise and jax.default_backend() != "tpu"
-    pallas_on = cfg.use_pallas and (jax.default_backend() == "tpu" or interp)
-    if pallas_on and cfg.use_fused_step and isinstance(env, NifEnv):
-        # Fully fused step: the sample loop, the trace, and the NIF run
-        # in ONE kernel, software-pipelined so the trace's VPU work hides
-        # behind the NIF matmuls (ops/megastep_pallas.py docstring).
-        # cfg.pallas_interpret > 0 switches to host-noise mode replaying
-        # the XLA branch's exact streams: on TPU the REAL kernel runs
-        # (deterministic cross-backend replay on hardware); elsewhere
-        # the same kernel runs emulated (interpret) - including inside
-        # shard_map on the virtual CPU mesh.
-        from ..ops.megastep_pallas import render_megastep_pallas
-
-        if host_noise:
-            # block_size only overridden for emulation; on TPU the
-            # kernel's tuned default applies (single source of truth).
-            kw = {"block_size": _INTERPRET_BLOCK} if interp else {}
-            out = render_megastep_pallas(
-                scene, settings, env.params, cols, rows,
-                noise=step_noise(step_key, cols.shape[0], cfg, qmc_ctx=qmc_ctx),
-                width=cfg.width, height=cfg.height,
-                max_path_length=cfg.max_path_length,
-                aa_noise_type=cfg.aa_noise_type,
-                interpret=interp,
-                stub=cfg.megastep_stub or None,
-                env_skip=cfg.env_skip,
-                **kw,
-            )
-            spp = jnp.int32(cfg.pallas_interpret)
-        else:
-            seed = jax.random.bits(step_key, (2,), jnp.uint32).astype(jnp.int32)
-            out = render_megastep_pallas(
-                scene, settings, env.params, cols, rows, seed,
-                sobol=(
-                    _kernel_sobol(cfg, qmc_ctx, None)
-                    if qmc_ctx is not None else None
-                ),
-                sobol_dims=sobol_dims_used(cfg),
-                width=cfg.width, height=cfg.height,
-                max_path_length=cfg.max_path_length,
-                aa_noise_type=cfg.aa_noise_type,
-                stub=cfg.megastep_stub or None,
-                env_skip=cfg.env_skip,
-            )
-            spp = settings.samples_per_step
-        return WorkBatch(
-            u=work.u,
-            v=work.v,
-            r=work.r + out.radiance.x,
-            g=work.g + out.radiance.y,
-            b=work.b + out.radiance.z,
-            sample_count=work.sample_count + spp,
-            path_length=work.path_length + out.path_len,
-        )
 
     def body(sample_idx, carry):
         rad, plen = carry

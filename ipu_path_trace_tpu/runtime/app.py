@@ -1,6 +1,6 @@
 """PathTracerApp: init / build / execute orchestration.
 
-TPU-native port of the reference application driver
+Port of the reference application driver
 (reference: src/PathTracerApp.{hpp,cpp}).  The phase split is preserved:
 
   init()    - graph-independent setup: load NIF assets / env light
@@ -32,14 +32,7 @@ from ..film.film import Film, tone_map
 from ..film.imageio import save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv
 from ..models.nif import analyse_nif, load_nif_assets
-from ..parallel.mesh import (
-    make_adaptive_step_fn,
-    make_mesh,
-    make_step_fn,
-    replicate,
-    shard_array,
-    shard_work,
-)
+from ..parallel.mesh import make_mesh, make_step_fn, replicate, shard_work
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import make_base_key
 from ..utils.logging import logger
@@ -87,8 +80,8 @@ def _device_preview_denoised(work, perm, exposure, gamma,
     """Denoised LDR preview computed ON DEVICE (device-film + UI +
     --denoise): the same gather/mean as _device_preview, then the
     à-trous filter (film/denoise.py) on the resident film - the filter
-    is pure XLA, so at interactive step sizes the denoise rides the TPU
-    for free and the preview stream shows the FILTERED image live.
+    is pure XLA, so at interactive step sizes the denoise runs on the
+    device and the preview stream shows the FILTERED image live.
     Guides are uploaded once per (fov, rotation, assets) key."""
     from ..film.denoise import _atrous, _firefly_clamp
 
@@ -114,11 +107,12 @@ def parse_env_assets(assets: str, partials_type: str = "half",
 
     - 'constant:R,G,B'   uniform radiance
     - 'texture:<file>'   equirect HDR texture (EXR or anything imageio reads)
-    - '<dir>'            NIF assets dir: nif_metadata.txt + converted.hdf5
+    - '<dir>'            NIF assets dir: nif_metadata.txt + converted.npz
+                         (or converted.hdf5)
                          (loadNifModels, PathTracerApp.cpp:106-123)
 
     ``nif_precision='int8'`` (--nif-precision) quantises the loaded NIF
-    for the MXU's double-rate int8 chain (models/quant.py).  A QAT'd
+    into the int8 chain (models/quant.py).  A QAT'd
     asset's quant_amax.json sidecar (scripts/quant_qat.py) supplies the
     activation grids its fine-tune trained against; without one the
     grids are lattice-calibrated at load (~1 s).
@@ -164,7 +158,7 @@ class PathTracerApp:
             # and the switch is silently ignored.
             jax.config.update("jax_platforms", "cpu")
             logger().info("Using CPU simulator backend (--model).")
-        self.trace = TraceChannel("tpu_path_tracer")
+        self.trace = TraceChannel("path_tracer")
         self.programs = ProgramManager()
         if config.scene:
             from ..core.scenefile import load_scene
@@ -194,21 +188,16 @@ class PathTracerApp:
         # arrays from the most recent worklist fetch (either pipeline):
         self._debug_soa: tuple | None = None
         self._preview_guides: tuple | None = None
-        # --env-skip auto resolution, set by build() (None until then;
-        # "on"/"off" resolve trivially, "auto" runs the dead-block probe
-        # in _resolve_env_skip):
-        self._env_skip_resolved: bool | None = None
         # Set by a SIGTERM/SIGINT handler (runtime/cli.py): the render
         # loop finishes the in-flight step, then takes the normal exit
         # path - final fetch, exit image save, checkpoint.  Preemption
-        # of a long TPU job must not lose completed samples.
+        # of a long render must not lose completed samples.
         self.stop_requested = False
 
     # ------------------------------------------------------------------
     def init(self) -> None:
         cfg = self.cfg
-        if cfg.cache_dir:
-            enable_compilation_cache(cfg.cache_dir)
+        enable_compilation_cache(cfg.cache_dir)
         spp = cfg.rounded_samples_per_pixel()
         if spp != cfg.samples:
             logger().info(
@@ -251,7 +240,7 @@ class PathTracerApp:
                         else (2048, 4096))
                 t0 = time.monotonic()
                 self.env = bake_nif_env(
-                    self.env, int(h), int(w), use_pallas=self.cfg.use_pallas,
+                    self.env, int(h), int(w),
                     max_batch_size=self.cfg.max_nif_batch_size,
                 )
                 jax.block_until_ready(self.env.texture)
@@ -268,82 +257,9 @@ class PathTracerApp:
             height=self.cfg.height,
             max_path_length=self.cfg.max_path_length,
             aa_noise_type=self.cfg.aa_noise_type,
-            use_pallas=self.cfg.use_pallas,
-            pallas_interpret=self.cfg.pallas_interpret,
-            adaptive_min=self.cfg.adaptive_min,
-            adaptive_max_factor=self.cfg.adaptive_max_factor,
             sampler=self.cfg.sampler,
             sobol_dims=self.cfg.sobol_dims,
-            env_skip=(self._env_skip_resolved
-                      if self._env_skip_resolved is not None
-                      else self.cfg.env_skip == "on"),
         )
-
-    # Auto --env-skip decision rule.  The skip elides the NIF chain for
-    # all-dead blocks; its lax.cond guard costs ~1.5% on scenes where it
-    # never fires, and the chain is ~84% of the step (docs/ENVSKIP.json,
-    # docs/PERF.md "Where the time goes"), so the expected win is
-    # dead_fraction * 0.84 against a 0.015 guard tax - breakeven at
-    # ~1.8% dead blocks.  2% adds a little margin for probe noise:
-    AUTO_ENV_SKIP_THRESHOLD = 0.02
-    AUTO_ENV_SKIP_PROBE_SAMPLES = 2
-
-    def _resolve_env_skip(self) -> bool:
-        """Resolve cfg.env_skip ("auto"/"on"/"off") to the kernel bool.
-
-        "auto" measures the scene's dead-block fraction - the exact
-        criterion the skip guard tests per (block, sample) - by tracing
-        a couple of samples with the XLA twin on the HOST CPU backend
-        over the real ordered worklist, then applies the measured
-        breakeven rule above.  The reference cannot make this choice:
-        its escaped-ray pre/post-process always pays the full batch
-        (codelets.cpp:348-352).  The probe is skipped whenever the
-        fused NIF megastep (the only kernel with the skip) won't run,
-        and under --load-exe, where the kernel choice is already baked
-        into the executable.
-        """
-        cfg = self.cfg
-        if cfg.env_skip != "auto":
-            return cfg.env_skip == "on"
-        # Mirror the step's own kernel choice (render/wavefront.py
-        # pallas_on): the fused NIF megastep - the only kernel with the
-        # skip - runs on TPU backends, or anywhere in host-noise mode:
-        interp = (cfg.pallas_interpret > 0
-                  and jax.default_backend() != "tpu")
-        pallas_on = cfg.use_pallas and (
-            jax.default_backend() == "tpu" or interp)
-        if not (pallas_on and cfg.nif_mode == "fused"
-                and isinstance(self.env, NifEnv)) or cfg.load_exe:
-            return False
-        from ..ops.megastep_pallas import MEGASTEP_BLOCK
-        from ..render.wavefront import _INTERPRET_BLOCK, dead_block_fraction
-        block = _INTERPRET_BLOCK if interp else MEGASTEP_BLOCK
-        try:
-            cpu = jax.local_devices(backend="cpu")[0]
-        except RuntimeError:  # no CPU backend registered: probe in place
-            cpu = None
-        wl = self.balancer.work.active
-        scene_host = jax.tree.map(np.asarray, self.scene)
-        t0 = time.monotonic()
-        with jax.default_device(cpu):
-            frac = dead_block_fraction(
-                jax.tree.map(jnp.asarray, scene_host),
-                self.settings(self.samples_per_step),
-                StaticConfig(width=cfg.width, height=cfg.height,
-                             max_path_length=cfg.max_path_length,
-                             aa_noise_type=cfg.aa_noise_type),
-                jnp.asarray(wl["u"], jnp.float32),
-                jnp.asarray(wl["v"], jnp.float32),
-                make_base_key(cfg.seed, cfg.rng_impl),
-                self.AUTO_ENV_SKIP_PROBE_SAMPLES, block,
-            )
-        skip = frac >= self.AUTO_ENV_SKIP_THRESHOLD
-        logger().info(
-            "--env-skip auto: dead-block fraction %.4f at block %d "
-            "(threshold %.3f, CPU probe %.1fs) -> %s",
-            frac, block, self.AUTO_ENV_SKIP_THRESHOLD,
-            time.monotonic() - t0, "on" if skip else "off")
-        return skip
 
     def local_samples(self, samples_per_step: int) -> int:
         """Per-chip sample count when a sample mesh axis is in use."""
@@ -447,10 +363,8 @@ class PathTracerApp:
         cfg = self.cfg
         if cfg.ipus > 1 or cfg.mesh_shape:
             # An explicit --mesh-shape forces the mesh path even at
-            # --ipus 1 (a 1x1 mesh): the shard_map ∘ Pallas production
-            # code then compiles and runs on a single real chip, which is
-            # how the multichip path is validated on hardware without a
-            # pod (scripts/validate_mesh_tpu.py).
+            # --ipus 1 (a 1x1 mesh), so the shard_map code also compiles
+            # and runs on a single device.
             self.mesh = make_mesh(cfg.ipus, cfg.mesh_shape)
             logger().info("Device mesh: %s", dict(self.mesh.shape))
             self.scene = replicate(self.scene, self.mesh)
@@ -462,12 +376,8 @@ class PathTracerApp:
             if cfg.enable_load_balancing:
                 # The reference's seed-142 shuffle spreads work across IPU
                 # tiles (LoadBalancer.cpp:118-139) and pairs with the
-                # per-step path-length re-deal.  On TPU the equivalent
-                # "tiles" are SIMD lanes: a RASTER-ordered worklist keeps
-                # kernel blocks spatially coherent so the dead-block
-                # early-out fires (sky strips skip the bounce-unroll tail,
-                # +14% - ops/trace_pallas.py), which a shuffle destroys.
-                # So shuffle only when dynamic balancing asked for it.
+                # per-step path-length re-deal, so shuffle only when
+                # dynamic balancing asked for it.
                 if cfg.layout == "coherent":
                     logger().info(
                         "--enable-load-balancing overrides --layout with the "
@@ -475,10 +385,9 @@ class PathTracerApp:
                 self.balancer.randomise_work_list(worklist)
             else:
                 if cfg.layout == "coherent":
-                    # TPU-first default: primary-hit-sorted records make
-                    # kernel blocks homogeneous so the megastep's
-                    # dead-block early-out fires block-wise (the SIMD
-                    # inverse of the reference's long/short pairing;
+                    # Primary-hit-sorted records keep neighbouring lanes
+                    # on the same kind of path (the SIMD inverse of the
+                    # reference's long/short pairing;
                     # runtime/worklist.coherent_order).
                     worklist = coherent_order(
                         worklist, self.scene, cfg.width, cfg.height,
@@ -494,33 +403,13 @@ class PathTracerApp:
         log_tensor_info("scene", self.scene)
         log_tensor_info("env", self.env)
 
-        with self.trace.span("resolve_env_skip"):
-            self._env_skip_resolved = self._resolve_env_skip()
         step_fn = make_step_fn(self.static_config(), self.mesh, rng_impl=self.cfg.rng_impl)
         self.programs.add("path_trace", step_fn)
-        adaptive_fn = None
-        if cfg.adaptive:
-            if not isinstance(self.env, NifEnv):
-                raise ValueError(
-                    "--adaptive requires a NIF environment (--assets <dir>); "
-                    "the budget controller lives in the fused megastep")
-            adaptive_fn = make_adaptive_step_fn(
-                self.static_config(), self.mesh, rng_impl=self.cfg.rng_impl)
-            self.programs.add("path_trace_adaptive", adaptive_fn)
 
         if cfg.load_exe:
             with self.trace.span("load_exe"):
                 if not self.programs.load(cfg.load_exe):
                     raise RuntimeError(f"Could not load executable '{cfg.load_exe}'")
-                if cfg.adaptive and not self.programs.has_loaded(
-                        "path_trace_adaptive"):
-                    # Fail loudly, matching exe_cache's save-side design:
-                    # a quiet JIT fallback would pay the minutes-long
-                    # compile --load-exe exists to skip.
-                    raise RuntimeError(
-                        f"executable '{cfg.load_exe}' was saved without "
-                        "--adaptive (no path_trace_adaptive program); "
-                        "re-save with --adaptive --save-exe")
             return
 
         if cfg.save_exe or cfg.compile_only:
@@ -530,21 +419,9 @@ class PathTracerApp:
                 out = step_fn(*args)
                 jax.block_until_ready(out)
                 to_save = {"path_trace": args}
-                if adaptive_fn is not None:
-                    a_args = args[:3] + (self._fresh_lum2(),) + args[3:]
-                    jax.block_until_ready(adaptive_fn(*a_args))
-                    to_save["path_trace_adaptive"] = a_args
             if cfg.save_exe:
                 with self.trace.span("save_exe"):
                     self.programs.save(cfg.save_exe, to_save)
-
-    def _fresh_lum2(self):
-        """Zeroed per-record second-moment accumulator (adaptive mode),
-        sharded like the worklist."""
-        l2 = jnp.zeros(len(self.balancer.work.active), jnp.float32)
-        if self.mesh is not None:
-            l2 = shard_array(l2, self.mesh)
-        return l2
 
     def _example_args(self):
         work = to_device_batch(self.balancer.work.active)
@@ -597,8 +474,6 @@ class PathTracerApp:
         # at save-interval.
         device_film = cfg.device_film
         work_dev_resident = None
-        lum2_dev = None  # adaptive mode: per-record second moments
-        fetched_l2 = None
         df_dirty = False  # device-resident samples newer than the film?
         raster_perm = None
         if device_film:
@@ -695,21 +570,10 @@ class PathTracerApp:
             if device_film:
                 from ..core.records import WorkBatch
 
-                lum2_saved = saved.pop("lum2", None)
                 work_dev_resident = WorkBatch(
                     **{k: jnp.asarray(v) for k, v in saved.items()})
                 if self.mesh is not None:
                     work_dev_resident = shard_work(work_dev_resident, self.mesh)
-                if cfg.adaptive:
-                    # Budgets derive from (work, lum2), so restoring both
-                    # continues the adaptive schedule bitwise-identically.
-                    if lum2_saved is None:
-                        raise ValueError(
-                            "checkpoint has no adaptive lum2 state; it was "
-                            "written without --adaptive")
-                    lum2_dev = jnp.asarray(lum2_saved)
-                    if self.mesh is not None:
-                        lum2_dev = shard_array(lum2_dev, self.mesh)
                 df_dirty = True
             else:
                 film.hdr[...] = saved["hdr"]
@@ -739,47 +603,25 @@ class PathTracerApp:
         settings_sig = None
         settings = None
         if cfg.profile_dir:
-            # XLA/TPU trace of the whole render loop - the analog of the
+            # XLA profiler trace of the whole render loop - the analog of the
             # reference's PVTI instrumentation (PathTracerApp.cpp:636-776);
             # view with tensorboard / xprof.
             jax.profiler.start_trace(cfg.profile_dir)
             logger().info("Profiler trace -> '%s'", cfg.profile_dir)
         if cfg.device_timing:
-            # Per-phase device-time split at the real render shape - the
+            # Whole-step device time at the real render shape - the
             # analog of the reference's per-step cycle counters
             # (PathTracerApp.cpp:438-462); see utils/devtime.py.  On a
             # mesh the sharded step is timed and reported per chip.
-            from ..utils.devtime import log_phase_split, measure_phases
+            from ..utils.devtime import log_step_timing, measure_step
 
-            if cfg.adaptive:
-                # measure_phases times the UNIFORM step at nominal spp;
-                # adaptive reallocates samples across blocks, so treat
-                # the split as the per-sample baseline, not this run's
-                # exact phase shares.
-                logger().warning(
-                    "--device-timing with --adaptive reports the uniform "
-                    "step's phase split (the adaptive schedule shifts "
-                    "samples between blocks)")
             with self.trace.span("device_timing"):
-                split = measure_phases(
+                timing = measure_step(
                     self.scene, self.settings(self.samples_per_step),
                     self.static_config(), to_device_batch(balancer.work.active),
                     key, self.env, mesh=self.mesh,
                 )
-            log_phase_split(split)
-        # Per-step key folding runs on the CPU backend: on the default
-        # (TPU) device each fold_in is a tiny dispatch whose latency is
-        # pure overhead in the hot loop (fold_in's threefry derivation is
-        # backend-deterministic, so values are unchanged).  Done AFTER
-        # the device-timing block - a committed CPU input would pin its
-        # jitted measurement to the CPU device while the Pallas TPU
-        # kernels are still selected.
-        key_on_cpu = False
-        try:
-            key = jax.device_put(key, jax.devices("cpu")[0])
-            key_on_cpu = True
-        except RuntimeError:
-            pass  # no CPU backend registered; fold on the default device
+            log_step_timing(timing)
         start_time = time.monotonic()
         logger().info("Render started")
 
@@ -807,7 +649,6 @@ class PathTracerApp:
                         disk_pending["norm"] = 0  # film is empty again
                         balancer.clear_active_accumulators()
                         work_dev_resident = None  # device-film: re-upload cleared
-                        lum2_dev = None  # adaptive: restart the schedule too
                         ckpt_written["step"] = 0  # restart: re-checkpoint from 1
                         start_time = time.monotonic()
                         step = 1
@@ -825,9 +666,8 @@ class PathTracerApp:
                     self.samples_per_step,
                 )
 
-            # Rebuild the settings pytree only when an input changed -
-            # each rebuild uploads ~9 scalars, which through a
-            # high-latency transport costs real time every step:
+            # Rebuild the settings pytree only when an input changed
+            # (each rebuild uploads ~9 scalars):
             sig = (self.samples_per_step, state["fov"], state["env_rotation"])
             if sig != settings_sig:
                 settings = self.settings(
@@ -844,11 +684,6 @@ class PathTracerApp:
             # --- device render: setup -> path_trace -> read_results ---
             with self.trace.span("ipu_render"):
                 step_key = jax.random.key_data(jax.random.fold_in(key, step))
-                if key_on_cpu:
-                    # numpy so the words are an uncommitted input; when
-                    # the key stayed on the default device this would be
-                    # a blocking per-step device fetch instead, so skip.
-                    step_key = np.asarray(step_key)
                 if device_film:
                     # Upload once; thereafter the worklist (and with it
                     # the film accumulation) stays on device.
@@ -856,18 +691,10 @@ class PathTracerApp:
                         work_dev_resident = to_device_batch(balancer.work.active)
                         if self.mesh is not None:
                             work_dev_resident = shard_work(work_dev_resident, self.mesh)
-                    if cfg.adaptive:
-                        if lum2_dev is None:
-                            lum2_dev = self._fresh_lum2()
-                        work_dev_resident, lum2_dev = self.programs.run(
-                            "path_trace_adaptive", self.scene, settings,
-                            work_dev_resident, lum2_dev, step_key, self.env,
-                        )
-                    else:
-                        work_dev_resident = self.programs.run(
-                            "path_trace", self.scene, settings, work_dev_resident,
-                            step_key, self.env,
-                        )
+                    work_dev_resident = self.programs.run(
+                        "path_trace", self.scene, settings, work_dev_resident,
+                        step_key, self.env,
+                    )
                     fetched = None
                     if step % cfg.save_interval == 0 or step == steps:
                         # Fetch the SoA batch as-is: the u16 wire record
@@ -876,17 +703,13 @@ class PathTracerApp:
                         # film must accumulate from the int32 counts
                         # (Film.accumulate_soa).
                         fetched = jax.tree.map(np.asarray, work_dev_resident)
-                        fetched_l2 = (np.asarray(lum2_dev)
-                                      if cfg.adaptive else None)
                     elif step % 16 == 0:
                         # Drain the dispatch queue: every enqueued step
-                        # pre-allocates its 20 B/pixel output in HBM, so
-                        # hundreds of in-flight steps (a long render with
-                        # a sparse save-interval) pile up gigabytes and
-                        # throttle the device ~2.5x (measured: a 334-deep
-                        # chain ran at 50 Mpaths/s vs 125 for 100-deep).
-                        # A scalar fetch bounds the queue at 16 steps
-                        # (~500 MB) for ~0.1 s per 43 s window.
+                        # pre-allocates its 20 B/pixel output in device
+                        # memory, so hundreds of in-flight steps (a long
+                        # render with a sparse save-interval) pile up
+                        # gigabytes.  A scalar fetch bounds the queue at
+                        # 16 steps (~350 MB at 1104x1000).
                         with self.trace.span("queue_drain"):
                             float(work_dev_resident.r[0])
                     df_dirty = fetched is None
@@ -953,7 +776,6 @@ class PathTracerApp:
                     ui_server.update_progress(step, steps)
                 if fetched is not None:
                     def device_film_processing(step=step, wb=fetched,
-                                               l2=fetched_l2,
                                                ui=ui_server, fp=current_fp()):
                         with self.trace.span("accumulate_framebuffers"):
                             film.reset()
@@ -962,10 +784,7 @@ class PathTracerApp:
                             )
                         self._debug_soa = (wb.u, wb.v, wb.path_length,
                                            wb.sample_count)
-                        soa = wb._asdict()
-                        if l2 is not None:
-                            soa["lum2"] = l2  # adaptive schedule state
-                        write_ckpt(step, soa=soa, fp=fp)
+                        write_ckpt(step, soa=wb._asdict(), fp=fp)
                         disk_pending["norm"] = 1
                         if ui is not None:
                             ui.start_sending_raw_image(film.hdr_at_step(1))
@@ -1088,10 +907,7 @@ class PathTracerApp:
                 wb = jax.tree.map(np.asarray, work_dev_resident)
                 film.reset()
                 film.accumulate_soa(wb.u, wb.v, wb.r, wb.g, wb.b, wb.sample_count)
-            soa = wb._asdict()
-            if cfg.adaptive and lum2_dev is not None:
-                soa["lum2"] = np.asarray(lum2_dev)
-            write_ckpt(step - 1, soa=soa)
+            write_ckpt(step - 1, soa=wb._asdict())
             disk_pending["norm"] = 1
             if ui_server is not None:
                 ui_server.start_sending_raw_image(film.hdr_at_step(1))
@@ -1126,11 +942,11 @@ class PathTracerApp:
 
     # ------------------------------------------------------------------
     def _log_device_memory(self) -> None:
-        """One-shot HBM report after the first completed step.
+        """One-shot device-memory report after the first completed step.
 
-        Catches on-device footprint regressions (e.g. the dispatch-queue
-        pileup of PERF.md end-to-end lesson 1) without a profiler run.
-        memory_stats is a TPU/GPU feature; backends without it skip.
+        Catches on-device footprint regressions (e.g. a dispatch-queue
+        pileup) without a profiler run.  memory_stats is an accelerator
+        feature; backends without it skip.
         """
         try:
             stats = jax.devices()[0].memory_stats() or {}

@@ -50,9 +50,8 @@ _FINGERPRINT_FIELDS = (
     "assets", "scene", "max_path_length", "aa_noise_type",
     "aa_noise_scale", "fov", "stop_prob", "roulette_depth",
     "refractive_index", "env_map_rotation", "aperture", "focal_distance",
-    "partials_type", "use_pallas", "nif_mode", "device_film",
+    "partials_type", "nif_mode", "device_film",
     "ipus", "mesh_shape", "enable_load_balancing", "layout",
-    "adaptive", "adaptive_min", "adaptive_max_factor",
     "sampler", "sobol_dims",
 )
 
@@ -64,13 +63,8 @@ _FIELD_DEFAULTS = {"enable_load_balancing": False,
                    # raster-ordered worklists (per-lane noise is
                    # position-keyed, so the layout is numerics-affecting):
                    "layout": "raster",
-                   "adaptive": False,
-                   # Inert without adaptive; normalised to None by
-                   # render_fingerprint for non-adaptive runs:
-                   "adaptive_min": None,
-                   "adaptive_max_factor": None,
                    # Pre---sampler checkpoints were prng renders; the dim
-                   # knob is inert there (normalised like adaptive's):
+                   # knob is inert there (normalised to None):
                    "sampler": "prng",
                    "sobol_dims": None}
 
@@ -88,10 +82,6 @@ def render_fingerprint(cfg, overrides: dict | None = None) -> dict:
         if unknown:
             raise ValueError(f"unknown fingerprint fields: {unknown}")
         fp.update(overrides)
-    if not fp["adaptive"]:
-        # The budget knobs are inert without --adaptive: normalise them
-        # so uniform renders resume across knob-DEFAULT changes.
-        fp["adaptive_min"] = fp["adaptive_max_factor"] = None
     if fp["sampler"] == "prng":
         fp["sobol_dims"] = None  # inert without --sampler sobol
     return fp

@@ -19,13 +19,13 @@ from .config import Config
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu_trace",
-        description="TPU-native neural path tracer (ipu_path_trace re-designed for TPU).",
+        description="Neural path tracer (ipu_path_trace re-designed for JAX/XLA accelerators).",
         add_help=False,
     )
     std = p.add_argument_group("Options")
     std.add_argument("--help", action="help", help="Show command help.")
     std.add_argument("--model", action="store_true",
-                     help="Use the CPU simulator backend instead of TPU hardware.")
+                     help="Use the CPU simulator backend instead of the accelerator.")
     std.add_argument("--ipus", type=int, default=1, metavar="N",
                      help="Number of chips to shard the render over.")
     std.add_argument("--save-exe", default="", metavar="NAME",
@@ -63,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     tool.add_argument("--aa-noise-type", default="normal",
                       choices=["uniform", "normal", "truncated-normal"])
     tool.add_argument("--codelet-path", default="./",
-                      help="Accepted for parity; there are no codelets on TPU.")
+                      help="Accepted for parity; there are no codelets.")
     tool.add_argument("--enable-load-balancing", action="store_true",
                       help="Run the dynamic load balancing algorithm for path tracing.")
     tool.add_argument("--max-path-length", type=int, default=10)
@@ -73,143 +73,115 @@ def build_parser() -> argparse.ArgumentParser:
     tool.add_argument("--partials-type", default="half", choices=["half", "float"],
                       help="Matmul compute precision: half -> bfloat16, float -> float32.")
     tool.add_argument("--available-memory-proportion", type=float, default=0.6,
-                      help="Accepted for parity; the fused NIF kernel manages VMEM itself "
-                           "(reference: memory proportion for matmuls).")
+                      help="Accepted for parity (reference: memory proportion for matmuls).")
     tool.add_argument("--max-nif-batch-size", type=int, default=30 * 1472,
-                      help="Batch size for standalone NIF reconstruction serialisation "
-                           "(models/reconstruct); the in-loop fused NIF kernel "
-                           "needs no serialisation.")
+                      help="Batch size for NIF serialisation when evaluating the net "
+                           "over a full image grid (--nif-mode baked, models/reconstruct).")
     tool.add_argument("--ui-port", type=int, default=0,
                       help="Start a remote user-interface server on the specified port.")
 
-    tpu = p.add_argument_group("TPU options")
-    tpu.add_argument("--use-pallas", action=argparse.BooleanOptionalAction, default=True,
-                     help="Use fused Pallas kernels for the hot paths.")
-    tpu.add_argument("--mesh-shape", default="",
+    extra = p.add_argument_group("Additional options")
+    extra.add_argument("--mesh-shape", default="",
                      help="Device mesh as 'PIXELSxSAMPLES', e.g. '4x2'. Default: all chips on the pixel axis.")
-    tpu.add_argument("--layout", default="coherent",
+    extra.add_argument("--layout", default="coherent",
                      choices=["coherent", "raster"],
                      help="Worklist layout: 'coherent' sorts records by "
-                          "primary-hit class so kernel blocks stop bouncing "
-                          "together (default; measured +3%% over raster); "
+                          "primary-hit class so neighbouring lanes follow the "
+                          "same kind of path (default); "
                           "'raster' keeps row-major image order. "
                           "--enable-load-balancing overrides either with the "
                           "reference's shuffle + per-step re-deal.")
-    tpu.add_argument("--cache-dir", default="", help="Persistent compilation cache directory.")
-    tpu.add_argument("--profile-dir", default="",
+    extra.add_argument("--cache-dir", default="",
+                     help="Persistent compilation cache directory (default "
+                          "<repo>/.jax_cache; ignored when "
+                          "JAX_COMPILATION_CACHE_DIR is set).")
+    extra.add_argument("--profile-dir", default="",
                      help="Write an XLA profiler trace of the render loop here "
                           "(the PVTI-instrumentation analog; view with xprof).")
-    tpu.add_argument("--device-timing", action="store_true", default=False,
-                     help="Measure and log the per-sample device-time split "
-                          "(trace kernel vs NIF env kernel vs fused step) at "
-                          "the render shape before the loop starts - the "
-                          "cycle-counter analog of the reference.")
-    tpu.add_argument("--env-skip", nargs="?", const="on", default="auto",
-                     choices=("auto", "on", "off"),
-                     help="Skip the NIF env-light matmuls for kernel blocks "
-                          "whose paths all died without escaping (exact; "
-                          "measured 7.6x on a fully enclosed scene, ~1.5%% "
-                          "overhead on open scenes - docs/ENVSKIP.json). "
-                          "'auto' (default) probes the scene's dead-block "
-                          "fraction at build time and enables the skip only "
-                          "when it clears the guard cost; a bare --env-skip "
-                          "forces it on, '--env-skip off' forces it off.")
-    tpu.add_argument("--aperture", type=float, default=0.0,
+    extra.add_argument("--device-timing", action="store_true", default=False,
+                     help="Measure and log the per-sample device time of the "
+                          "whole step at the render shape before the loop "
+                          "starts - the cycle-counter analog of the reference.")
+    extra.add_argument("--aperture", type=float, default=0.0,
                      help="Thin-lens aperture radius (scene units); 0 = pinhole.")
-    tpu.add_argument("--focal-distance", type=float, default=1.0,
+    extra.add_argument("--focal-distance", type=float, default=1.0,
                      help="Focus-plane distance for depth of field.")
-    tpu.add_argument("--nif-mode", default="fused", choices=["fused", "baked"],
+    extra.add_argument("--nif-mode", default="fused", choices=["fused", "baked"],
                      help="fused: NIF MLP evaluated inside the render loop "
                           "(reference semantics); baked: decode the NIF once "
                           "to an equirect texture and use bilinear lookups "
-                          "(TPU-first; much faster, azimuth needs no re-bake).")
-    tpu.add_argument("--nif-precision", default="auto",
+                          "(azimuth needs no re-bake).")
+    extra.add_argument("--nif-precision", default="auto",
                      choices=["auto", "int8"],
                      help="NIF chain arithmetic: auto follows "
-                          "--partials-type; int8 quantises the chain onto "
-                          "the MXU's double-rate int8 mode (1.6x measured; "
-                          "quality gated on on-class PSNR, docs/QUANT.json - "
-                          "prefer QAT'd assets with a quant_amax.json).")
-    tpu.add_argument("--scene", default="",
+                          "--partials-type; int8 quantises the chain "
+                          "(models/quant.py; prefer QAT'd assets with a "
+                          "quant_amax.json).")
+    extra.add_argument("--scene", default="",
                      help="JSON scene description (spheres/discs with colour, "
                           "emission, material); default: the reference's "
                           "built-in scene. See core/scenefile.py for the schema.")
-    tpu.add_argument("--device-film", action="store_true", default=False,
+    extra.add_argument("--device-film", action="store_true", default=False,
                      help="Keep the worklist device-resident between steps and "
                           "download results only at save-interval boundaries "
-                          "(TPU-first; the reference round-trips the trace "
+                          "(the reference round-trips the trace "
                           "buffer every step).  With --ui-port, previews are "
                           "tone-mapped on device (LDR bytes only).  "
                           "Incompatible with --enable-load-balancing.")
-    tpu.add_argument("--metrics-file", default="",
+    extra.add_argument("--metrics-file", default="",
                      help="Append one JSON line per completed render step "
                           "(step, seconds, samples_per_sec, spp) plus a "
                           "final summary - machine-readable observability "
                           "for fleet/production monitoring.")
-    tpu.add_argument("--checkpoint", default="",
+    extra.add_argument("--checkpoint", default="",
                      help="Write the progressive render state to this .npz at "
                           "every save-interval and at exit, so an interrupted "
                           "render can be continued with --resume (with "
                           "--enable-load-balancing the re-deal layouts are "
                           "saved too, keeping resume bitwise-exact).")
-    tpu.add_argument("--resume", default="",
+    extra.add_argument("--resume", default="",
                      help="Continue a render from a --checkpoint file; the "
                           "combined result is bitwise-identical to an "
                           "uninterrupted run (the render config must match "
                           "the checkpoint's fingerprint).")
-    tpu.add_argument("--auto-resume", action="store_true", default=False,
+    extra.add_argument("--auto-resume", action="store_true", default=False,
                      help="With --checkpoint: resume from the checkpoint "
                           "file when it exists, start fresh when it does "
                           "not - one identical command line serves the "
                           "first launch and every post-preemption restart.")
-    tpu.add_argument("--adaptive", action="store_true", default=False,
-                     help="Adaptive per-block sampling: allocate each step's "
-                          "sample budget across kernel blocks by measured "
-                          "luminance variance (Neyman allocation) instead of "
-                          "uniformly - sky blocks stop paying the NIF cost "
-                          "for samples that no longer reduce error.  "
-                          "Unbiased (the film normalises per record) and "
-                          "deterministic.  Needs --device-film and a NIF "
-                          "environment.")
-    tpu.add_argument("--adaptive-min", type=int, default=8,
-                     help="Adaptive sampling: per-block budget floor "
-                          "(samples per step).")
-    tpu.add_argument("--adaptive-max-factor", type=float, default=16.0,
-                     help="Adaptive sampling: per-block budget cap as a "
-                          "multiple of --samples-per-step.")
-    tpu.add_argument("--rng-impl", default="auto",
-                     choices=["auto", "threefry2x32", "rbg", "unsafe_rbg"],
-                     help="Counter-based PRNG: auto = hardware rbg on TPU, "
-                          "threefry2x32 (cross-backend reproducible) elsewhere.")
-    tpu.add_argument("--sampler", default="prng", choices=["prng", "sobol"],
+    extra.add_argument("--rng-impl", default="threefry2x32",
+                     choices=["threefry2x32", "rbg", "unsafe_rbg"],
+                     help="Counter-based PRNG (threefry2x32 is reproducible "
+                          "across backends and replayed by the NumPy oracle).")
+    extra.add_argument("--sampler", default="prng", choices=["prng", "sobol"],
                      help="Sample-stream generator: prng = independent "
                           "uniforms (reference behaviour); sobol = hash-based "
                           "Owen-scrambled Sobol on the leading path "
                           "dimensions - the same unbiased estimator with "
                           "faster RMSE convergence per sample.")
-    tpu.add_argument("--sobol-dims", type=int, default=12,
+    extra.add_argument("--sobol-dims", type=int, default=12,
                      help="With --sampler sobol: how many leading path "
                           "dimensions ride the Sobol sequence (camera 4 + 4 "
                           "per bounce; rounded down to whole bounces, prng "
                           "beyond).")
-    tpu.add_argument("--denoise", action="store_true", default=False,
+    extra.add_argument("--denoise", action="store_true", default=False,
                      help="Filter SAVED images with the edge-avoiding a-trous "
                           "wavelet denoiser (primary-hit albedo/normal/depth "
                           "guides, film/denoise.py).  Post-process only: the "
                           "accumulator stays raw, so progressive refinement "
-                          "remains unbiased (docs/DENOISE.json).")
-    tpu.add_argument("--denoise-iters", type=int, default=4,
+                          "remains unbiased.")
+    extra.add_argument("--denoise-iters", type=int, default=4,
                      help="A-trous dilation passes for --denoise (filter "
                           "radius 2^n pixels).")
-    tpu.add_argument("--denoise-sigma", type=float, default=1.0,
+    extra.add_argument("--denoise-sigma", type=float, default=1.0,
                      help="Log-luminance edge-stop sigma for --denoise: "
                           "lower keeps more detail, higher smooths harder "
                           "(~0.5 near-converged, ~2 very noisy previews).")
-    tpu.add_argument("--denoise-clamp", type=float, default=10.0,
+    extra.add_argument("--denoise-clamp", type=float, default=10.0,
                      help="Firefly suppressor for --denoise: clamp each "
                           "pixel's luminance to k x its 3x3 neighbourhood "
                           "median before filtering (0 disables).")
-    tpu.add_argument("--debug-view", default="",
+    extra.add_argument("--debug-view", default="",
                      choices=["", "normal", "albedo", "depth", "path-length",
                               "escape-uv"],
                      help="Save a diagnostic channel instead of radiance "
@@ -255,7 +227,6 @@ def parse_config(argv=None) -> Config:
         available_memory_proportion=args.available_memory_proportion,
         max_nif_batch_size=args.max_nif_batch_size,
         ui_port=args.ui_port,
-        use_pallas=args.use_pallas,
         layout=args.layout,
         mesh_shape=args.mesh_shape,
         cache_dir=args.cache_dir,
@@ -264,7 +235,6 @@ def parse_config(argv=None) -> Config:
         nif_precision=args.nif_precision,
         profile_dir=args.profile_dir,
         device_timing=args.device_timing,
-        env_skip=args.env_skip,
         aperture=args.aperture,
         focal_distance=args.focal_distance,
         device_film=args.device_film,
@@ -273,9 +243,6 @@ def parse_config(argv=None) -> Config:
         resume=args.resume,
         auto_resume=args.auto_resume,
         metrics_file=args.metrics_file,
-        adaptive=args.adaptive,
-        adaptive_min=args.adaptive_min,
-        adaptive_max_factor=args.adaptive_max_factor,
         sampler=args.sampler,
         sobol_dims=args.sobol_dims,
         denoise=args.denoise,
@@ -323,7 +290,7 @@ def main(argv=None) -> int:
         # Graceful preemption: first SIGTERM/SIGINT finishes the
         # in-flight step and takes the normal exit path (final fetch,
         # exit image save, --checkpoint write); a second signal restores
-        # default handling (hard kill).  A preempted TPU job must not
+        # default handling (hard kill).  A preempted job must not
         # lose completed samples.
         import signal
 

@@ -44,12 +44,47 @@ def _register_serializations() -> None:
 _register_serializations()
 
 
-def enable_compilation_cache(cache_dir: str) -> None:
-    """Point XLA's persistent compilation cache at cache_dir."""
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+# The fixed default cache directory: <repo>/.jax_cache (listed in
+# .gitignore).  The path is part of what a later process looks up, so it
+# must not move between runs.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache")
+
+
+def compilation_cache_dir(cache_dir: str = "") -> str:
+    """The persistent compilation cache's directory, by the one rule:
+      1. ``JAX_COMPILATION_CACHE_DIR``, when set (``cache_dir`` is then
+         ignored);
+      2. otherwise ``cache_dir`` (--cache-dir), when given;
+      3. otherwise DEFAULT_CACHE_DIR.
+    """
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR") or cache_dir
+            or DEFAULT_CACHE_DIR)
+
+
+def enable_compilation_cache(cache_dir: str = "") -> str:
+    """Turn on XLA's persistent compilation cache in
+    compilation_cache_dir(cache_dir); returns that directory.
+
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and no
+    other directory is set here.  Programs compiled for the CPU are not
+    cached (returns ""): XLA:CPU ties its executables to the host's
+    exact instruction-set features.
+    """
+    if jax.default_backend() == "cpu":
+        return ""
+    path = compilation_cache_dir(cache_dir)
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        if cache_dir and cache_dir != path:
+            logger().info("--cache-dir '%s' ignored: JAX_COMPILATION_CACHE_DIR "
+                          "is set to '%s'", cache_dir, path)
+    else:
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    logger().info("Compilation cache enabled at '%s'", cache_dir)
+    logger().info("Compilation cache enabled at '%s'", path)
+    return path
 
 
 class ProgramManager:

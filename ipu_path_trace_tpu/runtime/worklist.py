@@ -1,14 +1,14 @@
 """Double-buffered worklists and the path-length load balancer.
 
-Host-side work scheduling, the TPU-native port of
-reference: src/LoadBalancer.{hpp,cpp}.  On TPU the wavefront is SIMD so
+Host-side work scheduling, the port of
+reference: src/LoadBalancer.{hpp,cpp}.  The wavefront is SIMD, so
 static sharding is already balanced; the shuffle/re-deal machinery is
 kept for behavioural parity (`--enable-load-balancing`) and because the
 record bookkeeping (clear + pathLength reduction for the rays/sec
 metric) lives here either way.  Hot loops go through the native C++
 runtime when built (csrc/pt_host.cpp), with NumPy fallbacks.
 
-"Tiles" are virtual on TPU: the unit the load balancer deals work to.
+"Tiles" are virtual here: the unit the load balancer deals work to.
 The default mirrors the reference's 1472 tiles/chip.
 """
 
@@ -104,18 +104,14 @@ def primary_hit_class(scene, u: np.ndarray, v: np.ndarray,
 
 def coherent_order(worklist: np.ndarray, scene, width: int, height: int,
                    fov_degrees: float, shards: int = 1) -> np.ndarray:
-    """Reorder records so kernel blocks die together (TPU-first layout).
+    """Reorder records so neighbouring lanes follow the same kind of path.
 
     The reference's balancer deals (shortest, longest) path pairs to
     every tile to EQUALISE load across its 1472 MIMD tiles
-    (LoadBalancer.cpp:141-192).  A SIMD machine wants the exact
-    opposite: the fused megastep's dead-block early-out
-    (ops/megastep_pallas.py) skips bounce work only when EVERY lane in
-    a block is dead, so records are sorted by the primary-hit class of
-    their central ray - a jitter-free proxy for expected path length.
-    Homogeneous blocks then stop bouncing together (measured +3% over
-    raster order, +20% over the reference's shuffle at the canonical
-    config - scripts/coherent_layout_probe.py / docs/PERF.md).
+    (LoadBalancer.cpp:141-192).  A SIMD machine wants the opposite:
+    lanes that run together should finish together, so records are
+    sorted by the primary-hit class of their central ray - a jitter-free
+    proxy for expected path length (scripts/coherent_layout_probe.py).
 
     The sort is stable (raster order breaks ties) so the layout is
     deterministic.  With ``shards`` > 1 the sorted order is dealt

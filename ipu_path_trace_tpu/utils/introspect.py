@@ -2,7 +2,7 @@
 
 The debug-level analog of the reference's logTensorInfo
 (reference: src/io_utils.hpp:50-63), which dumps each tensor's shape,
-dtype and on-device layout.  On TPU the interesting extra is the
+dtype and on-device layout.  Here the interesting extra is the
 jax.sharding: which mesh axes each array spans and how many bytes live
 per device.
 """

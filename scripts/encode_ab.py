@@ -1,13 +1,10 @@
-"""A/B the kernel's double-angle Fourier encode against direct trig.
+"""A/B the int8 chain's double-angle Fourier encode against direct trig.
 
-The r5 re-run of the int8 ablation (docs/QUANT.json "ablation") showed
-the all-f32 chain through the KERNEL encode (ops/nif_pallas.nif_encode,
-double-angle recurrence) reads ~7 dB below the same weights through the
-trainer's direct-trig encode (models/nif.fourier_features) on the
-on-class 2048x4096 env - meaning most of what docs/QUANT.json "quality"
-attributed to int8 quantisation is actually ENCODE drift.  This script
-pins that attribution: same weights, same eval lattice, all-f32 chain,
-only the encode differs.
+The int8 chain encodes with a double-angle recurrence
+(models/nif.nif_encode); the trainer uses direct trig
+(models/nif.fourier_features).  This script measures what the encode
+alone costs on the on-class 2048x4096 env: same weights, same eval
+lattice, all-f32 chain, only the encode differs.
 
 Usage: python scripts/encode_ab.py [--grid 2048x4096] [--max-batch 131072]
 """
@@ -32,8 +29,8 @@ from ipu_path_trace_tpu.models.nif import (  # noqa: E402
     load_nif_assets,
 )
 from ipu_path_trace_tpu.models.synth_env import resolve_synth  # noqa: E402
-from ipu_path_trace_tpu.ops.nif_pallas import nif_encode  # noqa: E402
-from scripts.nif_width_sweep import psnr_log  # noqa: E402
+from ipu_path_trace_tpu.models.nif import nif_encode  # noqa: E402
+from ipu_path_trace_tpu.models.reconstruct import psnr_log  # noqa: E402
 
 SYNTH = "synth:urban-alley:2048x4096:seed7"
 

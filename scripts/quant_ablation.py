@@ -1,9 +1,8 @@
 """Where does the int8 PTQ quality loss come from?
 
-Full int8 PTQ of the shipped 6x320 lands at 27.69 dB vs the bf16 36.30
-(docs/QUANT.json "quality") - an 8.6 dB drop that fails the ship gate.
-Before spending a QAT budget, isolate which of the three quantisation
-points costs what, by running the XLA quant twin with each point
+Full int8 PTQ of the shipped 6x320 loses on-class PSNR against bf16
+(scripts/quant_psnr.py).  Before spending a QAT budget, isolate which of the three quantisation
+points costs what, by running the int8 chain with each point
 quantised ALONE (the rest f32):
 
 * ``feats``   - input Fourier features snapped to the constant 1/127
@@ -43,8 +42,8 @@ from ipu_path_trace_tpu.models.quant import (  # noqa: E402
     calibration_features,
 )
 from ipu_path_trace_tpu.models.synth_env import resolve_synth  # noqa: E402
-from ipu_path_trace_tpu.ops.nif_pallas import nif_encode  # noqa: E402
-from scripts.nif_width_sweep import psnr_log  # noqa: E402
+from ipu_path_trace_tpu.models.nif import nif_encode  # noqa: E402
+from ipu_path_trace_tpu.models.reconstruct import psnr_log  # noqa: E402
 
 SYNTH = "synth:urban-alley:2048x4096:seed7"
 
@@ -140,8 +139,10 @@ def main():
               file=sys.stderr)
 
     path = os.path.join(REPO, "docs", "QUANT.json")
-    with open(path) as f:
-        doc = json.load(f)
+    doc = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            doc = json.load(f)
     doc["ablation"] = out
     with open(path, "w") as f:
         json.dump(doc, f, indent=2)

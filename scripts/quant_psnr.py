@@ -5,9 +5,9 @@ canonical 6x320 trained on synth:urban-alley:2048x4096:seed7), PTQ-
 quantises it (models/quant.py), reconstructs the full 2048x4096 frame
 with the bf16 and the int8 chain, and scores both against the
 generator ground truth with the sweep's own log-domain PSNR
-(scripts/nif_width_sweep.psnr_log).  The decision rule is the r4 one:
+(models/reconstruct.psnr_log).  The decision rule is the r4 one:
 the headline may move to a faster arithmetic only if its on-class PSNR
-matches the canonical's (docs/PERF.md "On-class at reference scale").
+matches the canonical's.
 
 Writes the "quality" section of docs/QUANT.json.
 
@@ -37,7 +37,7 @@ from ipu_path_trace_tpu.models.quant import (  # noqa: E402
 )
 from ipu_path_trace_tpu.models.reconstruct import reconstruct_image  # noqa: E402
 from ipu_path_trace_tpu.models.synth_env import resolve_synth  # noqa: E402
-from scripts.nif_width_sweep import psnr_log  # noqa: E402
+from ipu_path_trace_tpu.models.reconstruct import psnr_log  # noqa: E402
 
 SYNTH = "synth:urban-alley:2048x4096:seed7"
 
@@ -99,12 +99,14 @@ def main():
           file=sys.stderr)
 
     path = os.path.join(REPO, "docs", "QUANT.json")
-    with open(path) as f:
-        doc = json.load(f)
+    doc = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            doc = json.load(f)
     doc["quality"] = {
         "asset": os.path.relpath(args.assets, REPO),
         "env": SYNTH,
-        "metric": "psnr_log_db (scripts/nif_width_sweep.psnr_log), full frame",
+        "metric": "psnr_log_db (models/reconstruct.psnr_log), full frame",
         "calibration_grid": f"{gh}x{gw}",
         "bf16_psnr_db": round(p_bf16, 2),
         "int8_psnr_db": round(p_q, 2),

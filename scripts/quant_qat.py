@@ -1,15 +1,13 @@
 """QAT fine-tune of the shipped reference-scale NIF for the int8 chain.
 
-PTQ fails the on-class ship gate by 8.6 dB (docs/QUANT.json "quality"),
-so this re-fits the canonical 6x320 THROUGH the exact inference
+PTQ loses on-class PSNR (scripts/quant_psnr.py), so this re-fits the canonical 6x320 THROUGH the exact inference
 quantiser (models/quant.qat_finetune: STE fake-quant on features,
 per-channel weights, and the fixed calibrated activation grids), then
 scores the resulting int8 chain against the ground truth with the
 sweep's full-frame log-PSNR.
 
-The decision rule is unchanged (docs/PERF.md "On-class at reference
-scale"): the headline moves to int8 only if its on-class PSNR matches
-the canonical bf16's.  Whatever the outcome, the numbers land in
+The decision rule: the headline moves to int8 only if its on-class
+PSNR matches the canonical bf16's.  Whatever the outcome, the numbers land in
 docs/QUANT.json "qat"; a passing run also writes the asset directory
 (converted.hdf5 + nif_metadata.txt + quant_amax.json with the
 activation grids the fine-tune trained against).
@@ -37,7 +35,7 @@ from ipu_path_trace_tpu.models.quant import (  # noqa: E402
     quantize_nif,
 )
 from ipu_path_trace_tpu.models.synth_env import resolve_synth  # noqa: E402
-from scripts.nif_width_sweep import psnr_log  # noqa: E402
+from ipu_path_trace_tpu.models.reconstruct import psnr_log  # noqa: E402
 from scripts.quant_psnr import reconstruct_quant  # noqa: E402
 
 SYNTH = "synth:urban-alley:2048x4096:seed7"
@@ -90,8 +88,10 @@ def main():
           file=sys.stderr)
 
     path = os.path.join(REPO, "docs", "QUANT.json")
-    with open(path) as f:
-        doc = json.load(f)
+    doc = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            doc = json.load(f)
     gate = doc.get("quality", {}).get("bf16_psnr_db")
     entry = {
         "epochs": args.epochs,

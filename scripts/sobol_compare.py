@@ -5,7 +5,7 @@ Two renders of the canonical frame at the SAME low sample total
 with counter-derived PRNG uniforms and one with --sampler sobol's
 Owen-scrambled points, saved side by side with a crop row over the sky
 gradient (the smooth integrand where QMC stratification shows).  The
-visual companion to scripts/sobol_bench.py / docs/SOBOL.json.
+visual companion to the sobol oracle and convergence tests (tests/test_qmc.py).
 
 Usage: python scripts/sobol_compare.py [assets_dir]
        SC_SPP overrides the per-image sample count.

@@ -3,7 +3,7 @@
 The reference's accumulator DEBUG case short-circuits stored colour into
 the film (codelets.cpp:283-285) and PreProcessEscapedRays overwrites
 c.clr with the equirect UVs for debugging (codelets.cpp:345); these
-tests pin the TPU port's analog - a save-path diagnostic channel - at
+tests pin this port's analog - a save-path diagnostic channel - at
 both the unit level and through the CLI app.
 """
 

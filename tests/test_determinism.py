@@ -1,8 +1,6 @@
 """End-to-end determinism: identical config => bitwise-identical film.
 
-Proven at scale on TPU (two 100k-spp canonical renders, bitwise-equal
-EXRs across unrelated host-loop changes - docs/PERF.md); this pins the
-property in CI at small scale, for both the step-wise and the
+This pins the property at small scale, for both the step-wise and the
 device-resident loop, which must also agree with each other exactly
 when run twice (their mutual agreement to float tolerance is covered by
 test_device_film).

@@ -24,12 +24,12 @@ def _env(embedding_dim=12):
 
 def test_bake_exact_at_lattice():
     env = _env()
-    baked = bake_nif_env(env, height=64, width=128, use_pallas=False)
+    baked = bake_nif_env(env, height=64, width=128)
     rows = np.arange(64, dtype=np.float32) / 63.0
     cols = np.arange(0, 128, 7, dtype=np.float32) / 127.0
     u = jnp.asarray(np.repeat(rows, cols.size))
     v = jnp.asarray(np.tile(cols, rows.size))
-    ref = eval_env(env, u, v, use_pallas=False)
+    ref = eval_env(env, u, v)
     out = eval_env(baked, u, v)
     # The bake jits nif_apply while the direct path here is unjitted;
     # XLA fusion flips bf16 rounding on a few percent of elements, so
@@ -43,11 +43,11 @@ def test_bake_exact_at_lattice():
 
 def test_bake_close_between_lattice():
     env = _env(embedding_dim=6)
-    baked = bake_nif_env(env, height=256, width=512, use_pallas=False)
+    baked = bake_nif_env(env, height=256, width=512)
     rng = np.random.default_rng(5)
     u = jnp.asarray(rng.uniform(0, 1, 2000).astype(np.float32))
     v = jnp.asarray(rng.uniform(0, 1, 2000).astype(np.float32))
-    ref = eval_env(env, u, v, use_pallas=False)
+    ref = eval_env(env, u, v)
     out = eval_env(baked, u, v)
     ref_np = np.stack([np.asarray(ref.x), np.asarray(ref.y), np.asarray(ref.z)])
     out_np = np.stack([np.asarray(out.x), np.asarray(out.y), np.asarray(out.z)])
@@ -61,9 +61,9 @@ def test_bake_honours_max_batch_size():
     must not change the result (Config.max_nif_batch_size is wired to
     bake_nif_env by runtime/app.load_env)."""
     env = _env()
-    full = bake_nif_env(env, height=32, width=64, use_pallas=False)
+    full = bake_nif_env(env, height=32, width=64)
     # Force 1-row chunks (max_batch_size == one row of texels):
-    rowwise = bake_nif_env(env, height=32, width=64, use_pallas=False,
+    rowwise = bake_nif_env(env, height=32, width=64,
                            max_batch_size=64)
     np.testing.assert_array_equal(np.asarray(full.texture),
                                   np.asarray(rowwise.texture))

@@ -102,3 +102,37 @@ def test_duplicate_program_name_rejected():
     pm.add("p", jax.jit(_fn))
     with pytest.raises(ValueError):
         pm.add("p", jax.jit(_fn))
+
+
+@pytest.mark.parametrize("env_dir,cache_dir,want", [
+    ("/env/cache", "", "/env/cache"),
+    ("/env/cache", "/flag/cache", "/env/cache"),  # the flag is ignored
+    ("", "/flag/cache", "/flag/cache"),
+    ("", "", None),  # the fixed <repo>/.jax_cache
+])
+def test_compilation_cache_dir_rule(monkeypatch, env_dir, cache_dir, want):
+    """JAX_COMPILATION_CACHE_DIR wins, then --cache-dir, then the fixed
+    <repo>/.jax_cache - never a temporary or per-process path."""
+    import os
+
+    from ipu_path_trace_tpu.runtime import exe_cache
+
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    got = exe_cache.compilation_cache_dir(cache_dir)
+    if want is None:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(repo, ".jax_cache")
+    else:
+        assert got == want
+
+
+def test_cpu_compiles_are_not_cached(monkeypatch, tmp_path):
+    from ipu_path_trace_tpu.runtime.exe_cache import enable_compilation_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    assert enable_compilation_cache(str(tmp_path / "c")) == ""
+    assert jax.config.jax_compilation_cache_dir == before
+    assert not (tmp_path / "c").exists()

@@ -80,8 +80,8 @@ def test_multichip_matches_singlechip_statistically():
 
 def _simulate_sharded(scene, settings, cfg, work, key, env, n_px, n_sm):
     """Single-device replay of the sharded semantics: slice the worklist
-    like the pixel axis, fold the key like mesh.local_step does
-    (parallel/mesh.py:82-83), and sum sample-replica deltas like psum."""
+    like the pixel axis, fold the key like mesh.local_step does, and sum
+    sample-replica deltas like psum."""
     from ipu_path_trace_tpu.core.records import WorkBatch
 
     n = work.u.shape[0]
@@ -144,74 +144,6 @@ def test_sharded_equals_singlechip_exactly(shape, env_kind):
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7, err_msg=f)
 
 
-@pytest.mark.parametrize("shape", ["8x1", "4x2"])
-def test_sharded_megastep_pallas_interpret(shape):
-    """THE production multichip path: the fused Pallas megastep running
-    INSIDE shard_map - pallas_call lowered under the mesh, psum around
-    its outputs - executed here in interpret mode on the 8-device CPU
-    mesh and compared (exactly for a pure pixel axis) against the
-    single-device replay of the same kernel/streams.  Closes the r2
-    verdict's top gap: this code path is what a real pod executes
-    (render/wavefront.py:render_step_impl -> ops/megastep_pallas.py via
-    parallel/mesh.py:sharded_render_step)."""
-    n_px, n_sm = parse_mesh_shape(shape, 8)
-    mesh = make_mesh(8, shape)
-    scene = default_scene()
-    env = _nif_env()
-    cfg = StaticConfig(
-        width=W, height=H, max_path_length=3, pallas_interpret=2
-    )
-    settings = RenderSettings.make(samples_per_step=2)
-    work = to_device_batch(make_worklist(W, H))
-    key = jax.random.key(13)
-
-    out_sharded = sharded_render_step(
-        replicate(scene, mesh), settings, cfg, shard_work(work, mesh),
-        key, replicate(env, mesh), mesh,
-    )
-    out_single = _simulate_sharded(scene, settings, cfg, work, key, env, n_px, n_sm)
-    for f in out_single._fields:
-        a = np.asarray(getattr(out_sharded, f))
-        b = np.asarray(getattr(out_single, f))
-        if n_sm == 1:
-            np.testing.assert_array_equal(a, b, err_msg=f)
-        else:
-            # psum may associate the cross-replica adds differently:
-            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7, err_msg=f)
-    # The kernel really ran: radiance accumulated and paths bounced.
-    assert np.asarray(out_sharded.r).max() > 0
-    assert np.asarray(out_sharded.path_length).sum() > 0
-    assert (np.asarray(out_sharded.sample_count) == 2 * n_sm).all()
-
-
-def test_sharded_unfused_pallas_interpret():
-    """The per-sample Pallas kernel pair (trace megakernel + fused NIF
-    env shade) through shard_map in interpret mode - the
-    use_fused_step=False production variant."""
-    mesh = make_mesh(8, "8x1")
-    scene = default_scene()
-    env = _nif_env()
-    cfg = StaticConfig(
-        width=W, height=H, max_path_length=3, pallas_interpret=1,
-        use_fused_step=False,
-    )
-    settings = RenderSettings.make(samples_per_step=1)
-    work = to_device_batch(make_worklist(W, H))
-    key = jax.random.key(17)
-
-    out_sharded = sharded_render_step(
-        replicate(scene, mesh), settings, cfg, shard_work(work, mesh),
-        key, replicate(env, mesh), mesh,
-    )
-    out_single = _simulate_sharded(scene, settings, cfg, work, key, env, 8, 1)
-    for f in out_single._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(out_sharded, f)),
-            np.asarray(getattr(out_single, f)), err_msg=f,
-        )
-    assert np.asarray(out_sharded.r).max() > 0
-
-
 def test_sharded_uneven_padding_matches_singlechip():
     """Padded worklists (pixel count not divisible by the mesh) shard and
     render identically to the single-device replay; padding records keep
@@ -239,77 +171,36 @@ def test_sharded_uneven_padding_matches_singlechip():
     assert (np.asarray(out_sharded.u)[70:] == 0xFFFF).all()
 
 
-def test_sharded_adaptive_equals_singlechip_exactly():
-    """Adaptive sampling (render/adaptive.py) through shard_map: each
-    pixel shard runs its own on-device budget controller on LOCAL
-    moments; sample-axis replicas hold identical moments so compute
-    identical budgets and psum-reduce.  Two steps so the second uses
-    REAL (non-cold-start) budgets over 4 blocks/shard, compared exactly
-    against the single-device replay of the same folds."""
-    from ipu_path_trace_tpu.parallel.mesh import sharded_adaptive_render_step
-    from ipu_path_trace_tpu.render.adaptive import adaptive_render_step
-
-    w, h = 32, 32  # 1024 records; 2x2 mesh -> 512/shard = 2 interpret blocks
-    n_px, n_sm = 2, 2
-    mesh = make_mesh(4, "2x2")
+@pytest.mark.parametrize("env_kind", ["const", "nif"])
+@pytest.mark.parametrize("shape", ["4x1", "2x2", "1x4"])
+def test_four_device_replay(shape, env_kind):
+    """The four-card layouts (chip_smoke.py --cards 4) on four virtual
+    devices: each shard equals a one-device render_step of its worklist
+    slice with the key local_step folds, summed over the samples axis."""
+    n_px, n_sm = parse_mesh_shape(shape, 4)
+    mesh = make_mesh(4, shape)
     scene = default_scene()
-    env = _nif_env()
-    spp = 2
-    cfg = StaticConfig(width=w, height=h, max_path_length=3,
-                       pallas_interpret=spp, adaptive_min=1,
-                       adaptive_max_factor=2.0)
-    settings = RenderSettings.make(samples_per_step=spp)
-    work = to_device_batch(make_worklist(w, h))
-    lum2 = jnp.zeros(work.u.shape[0], jnp.float32)
-    key = jax.random.key(23)
+    env = _nif_env() if env_kind == "nif" else ConstantEnv(
+        colour=jnp.asarray([0.9, 1.0, 0.7]))
+    cfg = StaticConfig(width=W, height=H)
+    settings = RenderSettings.make(samples_per_step=2)
+    work = to_device_batch(make_worklist(W, H))
+    key = jax.random.key(29)
 
-    out_s, l2_s = shard_work(work, mesh), jax.device_put(
-        lum2, jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("pixels")))
-    for step in (1, 2):
-        out_s, l2_s = sharded_adaptive_render_step(
-            replicate(scene, mesh), settings, cfg, out_s, l2_s,
-            jax.random.fold_in(key, step), replicate(env, mesh), mesh,
-        )
-
-    # Single-device replay of the sharded semantics:
-    per = work.u.shape[0] // n_px
-    parts, l2_parts = [], []
-    for i in range(n_px):
-        wl = jax.tree.map(lambda x: x[i * per: (i + 1) * per], work)
-        l2l = lum2[i * per: (i + 1) * per]
-        for step in (1, 2):
-            acc = l2acc = None
-            for s in range(n_sm):
-                k = jax.random.fold_in(
-                    jax.random.fold_in(jax.random.fold_in(key, step), i), s)
-                o, l2o = adaptive_render_step(
-                    scene, settings, cfg, wl, l2l, k, env)
-                d = jax.tree.map(lambda a, b: a - b, o, wl)
-                dl = l2o - l2l
-                acc = d if acc is None else jax.tree.map(
-                    lambda a, b: a + b, acc, d)
-                l2acc = dl if l2acc is None else l2acc + dl
-            wl = jax.tree.map(lambda a, b: a + b, wl, acc)
-            l2l = l2l + l2acc
-        parts.append(wl)
-        l2_parts.append(l2l)
-    from ipu_path_trace_tpu.core.records import WorkBatch
-
-    out_1 = WorkBatch(*[jnp.concatenate([getattr(o, f) for o in parts])
-                        for f in WorkBatch._fields])
-    l2_1 = jnp.concatenate(l2_parts)
-
-    for f in out_1._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(out_s, f)), np.asarray(getattr(out_1, f)),
-            rtol=1e-6, atol=1e-7, err_msg=f)
-    np.testing.assert_allclose(np.asarray(l2_s), np.asarray(l2_1),
-                               rtol=1e-6, atol=1e-7)
-    # The controller really adapted: counts vary across blocks by step 2,
-    # and every replica pair agreed (counts are exact multiples of n_sm):
-    counts = np.asarray(out_s.sample_count)
-    assert counts.min() != counts.max()
-    assert (counts % n_sm == 0).all()
+    out_sharded = sharded_render_step(
+        replicate(scene, mesh), settings, cfg, shard_work(work, mesh),
+        key, replicate(env, mesh), mesh,
+    )
+    out_single = _simulate_sharded(scene, settings, cfg, work, key, env, n_px, n_sm)
+    for f in out_single._fields:
+        a = np.asarray(getattr(out_sharded, f))
+        b = np.asarray(getattr(out_single, f))
+        if n_sm == 1:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        else:
+            # psum may associate the cross-replica adds differently:
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7, err_msg=f)
+    assert (np.asarray(out_sharded.sample_count) == 2 * n_sm).all()
 
 
 def test_worklist_divisibility_error():

@@ -1,6 +1,6 @@
 """Smoke coverage for the observability features: --profile-dir (the
 PVTI analog: an xprof/XLA profiler trace of the render loop) and
---device-timing (the cycle-counter analog: per-phase device-time split
+--device-timing (the cycle-counter analog: whole-step device time
 logged before the loop).  Both must work headless on any backend."""
 
 import os
@@ -59,7 +59,7 @@ def test_device_timing_logs_split(tmp_path):
         app.execute()
     finally:
         logger().removeHandler(h)
-    timing = [m for m in records if "Device phase timing" in m]
+    timing = [m for m in records if "Device step timing" in m]
     assert timing, records[:10]
     assert "step=" in timing[0] and "Mpaths/s" in timing[0]
 

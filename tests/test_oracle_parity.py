@@ -1,4 +1,4 @@
-"""Golden parity: the TPU wavefront renderer vs the NumPy oracle.
+"""Golden parity: the wavefront renderer vs the NumPy oracle.
 
 Both consume identical counter-derived random streams, so images must
 agree to float32 rounding - the strongest possible check that the

@@ -4,13 +4,12 @@ Three layers of checks:
   * sequence-level: exact (0, m, s)-net stratification properties that
     any correct Owen-scrambled Sobol construction must keep, plus a
     cross-check of the baked direction numbers against scipy's,
-  * renderer-level: the XLA wavefront consuming sobol streams replays
+  * renderer-level: the wavefront consuming sobol streams replays
     exactly through the NumPy oracle (same injected-noise machinery as
-    the prng parity tests), and the fused megastep's IN-KERNEL sobol
-    path agrees with host-generated sobol noise,
+    the prng parity tests),
   * estimator-level: per-lane index continuity - two progressive steps
     ARE the prefix of one bigger step (the property that makes sobol
-    compose with checkpoints, restarts and adaptive budgets).
+    compose with checkpoints and restarts).
 """
 
 import numpy as np
@@ -20,12 +19,10 @@ import pytest
 
 from ipu_path_trace_tpu.core import default_scene
 from ipu_path_trace_tpu.core.records import make_worklist, to_device_batch
-from ipu_path_trace_tpu.models import ConstantEnv, NifEnv
-from ipu_path_trace_tpu.models.nif import make_params, make_synthetic_nif
+from ipu_path_trace_tpu.models import ConstantEnv
 from ipu_path_trace_tpu.render import RenderSettings, StaticConfig
 from ipu_path_trace_tpu.render import qmc
 from ipu_path_trace_tpu.render.wavefront import (
-    _kernel_sobol,
     make_qmc_ctx,
     render_step,
     sample_key,
@@ -93,22 +90,15 @@ def _settings(spp, seed=9):
     return RenderSettings.make(samples_per_step=spp, seed=seed)
 
 
-def _nif_env():
-    weights, meta = make_synthetic_nif(
-        key=5, hidden=64, num_hidden=3, embedding_dim=6)
-    return NifEnv(params=make_params(weights, meta, dtype=jnp.float32)), (
-        weights, meta)
-
-
 def test_sobol_oracle_parity():
-    """The XLA wavefront in sobol mode replays exactly through the NumPy
+    """The wavefront in sobol mode replays exactly through the NumPy
     oracle consuming the identical injected streams."""
     from ipu_path_trace_tpu.cpu import oracle_scene_from, render_oracle
 
     scene = default_scene()
     spp = 4
     cfg = StaticConfig(width=W, height=H, max_path_length=6,
-                       sampler="sobol", use_pallas=False)
+                       sampler="sobol")
     settings = _settings(spp)
     work = to_device_batch(make_worklist(W, H))
     key = jax.random.key(7)
@@ -137,59 +127,11 @@ def test_sobol_oracle_parity():
     assert float(np.sqrt(np.mean(np.minimum(diff, 1e-2) ** 2))) < 2e-4
 
 
-def test_in_kernel_sobol_matches_host_noise():
-    """The megastep's in-kernel Owen-Sobol generator (interpret mode,
-    full dim coverage so the PRNG never runs) agrees with the same
-    kernel consuming host-precomputed sobol rows - validating the
-    in-kernel integer pipeline end to end."""
-    from ipu_path_trace_tpu.ops.megastep_pallas import render_megastep_pallas
-
-    scene = default_scene()
-    env, _ = _nif_env()
-    spp = 3
-    cfg = StaticConfig(width=W, height=H, max_path_length=2,
-                       sampler="sobol", sobol_dims=12,
-                       use_pallas=True, use_fused_step=True,
-                       pallas_interpret=spp)
-    assert sobol_dims_used(cfg) == 12  # == 4 + 4*2: no prng tail
-    settings = _settings(spp)
-    work = to_device_batch(make_worklist(W, H))
-    key = jax.random.key(3)
-
-    out_host = render_step(scene, settings, cfg, work, key, env)
-
-    ctx = make_qmc_ctx(work, cfg, settings)
-    cols = work.u.astype(jnp.float32)
-    rows = work.v.astype(jnp.float32)
-    out_k = render_megastep_pallas(
-        scene, settings, env.params, cols, rows,
-        seed=jnp.zeros((2,), jnp.int32),
-        sobol=_kernel_sobol(cfg, ctx, None), sobol_dims=12,
-        width=W, height=H, max_path_length=2, block_size=256,
-        interpret=True,
-    )
-    # The two variants are separately compiled programs, so float
-    # reassociation can flip chaotic branches on isolated lanes (same
-    # tolerance philosophy as the oracle parity tests): require near
-    # exactness off those lanes and very few of them.
-    diverged = np.zeros((W * H,), bool)
-    for host, kern in [(out_host.r, out_k.radiance.x),
-                       (out_host.g, out_k.radiance.y),
-                       (out_host.b, out_k.radiance.z)]:
-        d = np.abs((np.asarray(host) - np.asarray(work.r)) - np.asarray(kern))
-        diverged |= d > 1e-3
-        assert d[d <= 1e-3].max() < 1e-4 if (d <= 1e-3).any() else True
-    assert float(diverged.mean()) < 0.02, diverged.mean()
-    plen_neq = np.asarray(out_host.path_length) != np.asarray(out_k.path_len)
-    assert float(plen_neq.mean()) < 0.02
-
-
 def test_progressive_steps_are_sequence_prefix():
     """Index continuity: two sobol steps of 2 spp accumulate the SAME
     sample set as one 4-spp step (per-lane indices ride sampleCount), so
     the sums agree to float-addition reordering.  This is exactly the
-    property that makes sobol compose with checkpoint/resume and
-    adaptive budgets; prng mode has no analog (independent step keys).
+    property that makes sobol compose with checkpoint/resume; prng mode has no analog (independent step keys).
 
     Exact only at full sobol coverage (sobol_dims >= 4 + 4L): prng-tail
     dims derive from (step key, in-step sample index) and legitimately
@@ -198,7 +140,7 @@ def test_progressive_steps_are_sequence_prefix():
     scene = default_scene()
     env = ConstantEnv(colour=jnp.asarray([0.9, 0.9, 1.0]))
     cfg = StaticConfig(width=W, height=H, max_path_length=2,
-                       sampler="sobol", use_pallas=False)
+                       sampler="sobol")
     work0 = to_device_batch(make_worklist(W, H))
     k1, k2 = jax.random.key(0), jax.random.key(1)
 
@@ -231,9 +173,8 @@ def test_sobol_mean_matches_prng_ground_truth():
     env = ConstantEnv(colour=jnp.asarray([1.0, 1.0, 1.0]))
     work = to_device_batch(make_worklist(W, H))
     cfg_s = StaticConfig(width=W, height=H, max_path_length=6,
-                         sampler="sobol", use_pallas=False)
-    cfg_p = StaticConfig(width=W, height=H, max_path_length=6,
-                         use_pallas=False)
+                         sampler="sobol")
+    cfg_p = StaticConfig(width=W, height=H, max_path_length=6)
     out_s = render_step(scene, _settings(64), cfg_s, work, jax.random.key(2), env)
     ref = render_step(scene, _settings(1024), cfg_p, work, jax.random.key(3), env)
     ms = float(np.asarray(out_s.r).mean()) / 64

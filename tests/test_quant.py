@@ -1,20 +1,17 @@
-"""int8 NIF quantization: PTQ correctness, MXU-tile padding exactness,
-and Pallas-kernel parity.
+"""int8 NIF quantization: PTQ correctness, padding exactness and the
+integer chain against plain NumPy.
 
 The quant scheme (models/quant.py) is symmetric per-output-channel int8
 weights, constant-scale features, lattice-calibrated activation scales.
 Three layers of evidence:
 
-* the integer chain on packed (tile-padded) operands is BITWISE the
-  unpadded XLA twin given the same int8 features - zero padding never
-  changes an integer accumulator;
-* the fused Pallas kernel (ops/nif_pallas.py) matches the XLA twin to
-  the feature-quantisation tolerance: the f32 Fourier encode is
-  compile-context-sensitive at 1 ulp/octave (FMA contraction under the
-  chaotic double-angle map), so features may flip one int8 step between
-  contexts - same budget as the bf16 parity tests;
+* the integer chain on zero-padded operands is BITWISE the unpadded
+  chain given the same int8 features - zero padding never changes an
+  integer accumulator;
+* given the same int8 features, the jnp chain equals an integer NumPy
+  evaluation of the same scheme;
 * the quantised net tracks the f32 net to calibration accuracy (the
-  real quality gate is trained on-class PSNR, docs/QUANT.json).
+  real quality gate is trained on-class PSNR).
 
 Reference analog: the fp16-weights / half-partials precision-for-speed
 discipline of PathTracerApp.cpp:140-145,821-822, taken one step further.
@@ -24,20 +21,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ipu_path_trace_tpu.models.nif import make_params, make_synthetic_nif, nif_apply
+from ipu_path_trace_tpu.models.nif import (
+    make_params,
+    make_synthetic_nif,
+    nif_apply,
+    nif_encode,
+)
 from ipu_path_trace_tpu.models.quant import (
     QMAX,
+    ZP,
     nif_apply_quant,
     quant_layer_t,
     quant_mlp_t,
     quantize_nif,
-)
-from ipu_path_trace_tpu.ops.nif_pallas import (
-    _pack_scal_q,
-    _zpad_rows,
-    nif_apply_pallas_t,
-    nif_encode,
-    pack_quant_operands,
 )
 
 
@@ -84,69 +80,109 @@ def test_quantize_shapes_and_scales(small_nif, small_quant):
                                sw_skip / 127.0, rtol=1e-6)
 
 
+def _pad_rows(x, rows):
+    """Zero-pad the leading (feature) dim of x to ``rows``."""
+    return jnp.pad(x, ((0, rows - x.shape[0]),) + ((0, 0),) * (x.ndim - 1))
+
+
+def _int8_feats(qp, u, v):
+    f = nif_encode(u, v, qp.embedding_dim, jnp.float32)
+    return jnp.clip(jnp.round(f * QMAX), -QMAX, QMAX).astype(jnp.int8)
+
+
 @pytest.mark.quick
 def test_packed_chain_bitwise_vs_twin(small_quant):
-    """Zero padding to the MXU int8 tiles must not change a single
-    integer accumulator: the packed chain == the unpadded twin, bitwise,
-    when both consume the same int8 features."""
+    """Zero padding every contraction dim (and the head's output rows)
+    must not change a single integer accumulator: the padded chain ==
+    the unpadded twin, bitwise, when both consume the same int8
+    features."""
     qp = small_quant
-    u, v = _uv(777)  # not a tile multiple anywhere
+    u, v = _uv(777)  # not a multiple of anything
     twin = quant_mlp_t(qp, u, v)  # (3, P) pre-decode
 
-    ws, bs, ms, mskip, skip = pack_quant_operands(qp)
-    scal = _pack_scal_q(qp)
-    feats_f = nif_encode(u, v, qp.embedding_dim, jnp.float32)
-    feats = jnp.clip(jnp.round(feats_f * QMAX), -QMAX, QMAX).astype(jnp.int8)
-    feats = _zpad_rows(feats, ws[0].shape[1])
-    x = feats
-    for i in range(len(ws)):
-        rows = (ws[i].shape[1] - feats.shape[0]) if i == skip else ws[i].shape[1]
-        x = quant_layer_t(_zpad_rows(x, rows), feats, ws[i], bs[i], ms[i],
-                          mskip, scal[0, 8 + i],
-                          is_last=i == len(ws) - 1, is_skip=i == skip)
-    assert x.shape[0] == 8  # head padded to the i32 result tile
+    feats = _int8_feats(qp, u, v)  # (48, P)
+    fpad = _pad_rows(feats, 64)
+    pad_cols = lambda a, n: jnp.pad(a, ((0, 0), (0, n - a.shape[1])))
+    skip, nl = qp.skip_layer, len(qp.kernels)
+    x = fpad
+    for i in range(nl):
+        w_t = qp.kernels[i].T  # (out, in)
+        out_p = 8 if i == nl - 1 else w_t.shape[0] + 16
+        if i == skip:
+            trunk = w_t.shape[1] - feats.shape[0]
+            w_t = jnp.concatenate([pad_cols(w_t[:, :trunk], x.shape[0]),
+                                   pad_cols(w_t[:, trunk:], fpad.shape[0])], 1)
+        else:
+            w_t = pad_cols(w_t, x.shape[0])
+        w_t = _pad_rows(w_t, out_p)
+        col = lambda a: _pad_rows(a, out_p)[:, None]
+        mskip = col(qp.mult_skip) if i == skip else jnp.zeros((out_p, 1))
+        x = quant_layer_t(x, fpad, w_t, col(qp.biases[i]), col(qp.mults[i]),
+                          mskip, qp.inv_next[i],
+                          is_last=i == nl - 1, is_skip=i == skip)
+    assert x.shape[0] == 8
     assert jnp.array_equal(x[:3], twin)
     # Padded head rows are exactly zero (zero weights, zero bias):
     assert not np.asarray(x[3:]).any()
 
 
-@pytest.mark.quick
-def test_pallas_kernel_matches_twin(small_quant):
-    """Fused kernel vs XLA twin, interpret mode.  The integer chain is
-    identical by construction; the residual is the one-int8-step feature
-    flip from the compile-context-sensitive encode (module docstring),
-    so tolerance matches the bf16 parity budget."""
-    qp = small_quant
-    u, v = _uv(1000, seed=5)  # exercises the block-padding path
-    twin = np.asarray(nif_apply_quant(qp, u, v))
-    out = np.asarray(
-        nif_apply_pallas_t(qp, u, v, block_size=256, interpret=True).T)
-    assert out.shape == (1000, 3)
-    rel = np.abs(out - twin) / (np.abs(twin) + 1e-2 * np.abs(twin).max())
-    assert np.median(rel) < 1e-3  # most lanes bitwise-identical
-    assert rel.max() < 8e-2
+def _numpy_int_chain(qp, feats):
+    """The int8 scheme in plain NumPy: int64 integer dots, float32
+    per-element scaling in the order quant_layer_t uses."""
+    f = np.asarray(feats).astype(np.int64)  # (4E, P)
+    x = f
+    nl, skip = len(qp.kernels), qp.skip_layer
+    for i in range(nl):
+        w_t = np.asarray(qp.kernels[i]).T.astype(np.int64)
+        mult = np.asarray(qp.mults[i], np.float32)[:, None]
+        bias = np.asarray(qp.biases[i], np.float32)[:, None]
+        if i == skip:
+            trunk = w_t.shape[1] - f.shape[0]
+            acc = (w_t[:, :trunk] @ x).astype(np.float32)
+            accf = (w_t[:, trunk:] @ f).astype(np.float32)
+            y = (acc * mult + accf * np.asarray(qp.mult_skip, np.float32)[:, None]
+                 + bias)
+        else:
+            y = (w_t @ x).astype(np.float32) * mult + bias
+        if i == nl - 1:
+            return y
+        y = np.maximum(y, np.float32(0.0))
+        q = np.round(y * np.float32(np.asarray(qp.inv_next)[i])) - np.float32(ZP)
+        x = np.clip(q, -128, 127).astype(np.int64)
 
 
-def test_pallas_kernel_no_skip():
-    """skip_layer=None nets (mult_skip is a zero vector) through the
-    same packed-kernel path."""
-    weights, meta = make_synthetic_nif(key=3, hidden=48, num_hidden=3,
-                                       skip_layer=None)
+@pytest.mark.parametrize("arch", [
+    dict(key=7, hidden=64, num_hidden=4, skip_layer=2),
+    dict(key=3, hidden=48, num_hidden=3, skip_layer=None),
+    dict(key=5, hidden=96, num_hidden=2, skip_layer=1, embedding_dim=6),
+])
+def test_int8_chain_matches_integer_numpy(arch):
+    """Given the same int8 features, the jnp int8 chain (quant_layer_t)
+    equals a plain integer NumPy evaluation of the scheme: every
+    accumulator is an exact integer, so the only slack is f32 rounding
+    of the scale multiply - far below one requant step, so the hidden
+    integers agree and the head agrees to f32 rounding."""
+    weights, meta = make_synthetic_nif(**arch)
     qp = quantize_nif(weights, meta, grid=(32, 64))
-    assert qp.skip_layer == -1
-    u, v = _uv(500, seed=11)
-    twin = np.asarray(nif_apply_quant(qp, u, v))
-    out = np.asarray(
-        nif_apply_pallas_t(qp, u, v, block_size=256, interpret=True).T)
-    rel = np.abs(out - twin) / (np.abs(twin) + 1e-2 * np.abs(twin).max())
-    assert rel.max() < 8e-2
+    u, v = _uv(600, seed=4)
+    feats = _int8_feats(qp, u, v)
+    nl, skip = len(qp.kernels), qp.skip_layer
+    x = feats
+    for i in range(nl):
+        x = quant_layer_t(x, feats, qp.kernels[i].T, qp.biases[i][:, None],
+                          qp.mults[i][:, None], qp.mult_skip[:, None],
+                          qp.inv_next[i], is_last=i == nl - 1,
+                          is_skip=i == skip)
+    ref = _numpy_int_chain(qp, feats)
+    np.testing.assert_allclose(np.asarray(x), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 @pytest.mark.quick
 def test_quant_tracks_f32(small_nif, small_quant):
     """The int8 net approximates the f32 net to calibration accuracy.
     (The shipped quality gate is on-class PSNR at reference scale,
-    scripts/quant_psnr.py -> docs/QUANT.json.)"""
+    scripts/quant_psnr.py.)"""
     weights, meta = small_nif
     params = make_params(weights, meta, jnp.float32)
     u, v = _uv(2000, seed=9)
@@ -189,13 +225,11 @@ def test_fake_quant_matches_int_chain(small_nif):
     feats = fourier_features(u, v, meta.embedding_dimension)
     fq = np.asarray(fake_quant_apply(params, feats, 2, amax))  # (P, 3)
     twin = np.asarray(quant_mlp_t(qp, u, v)).T  # pre-decode (P, 3)
-    # fourier_features (direct sin) vs the kernels' double-angle encode
+    # fourier_features (direct sin) vs the int8 chain's double-angle encode
     # differ by up to ~0.005 - below one int8 step (1/127) but enough to
     # flip the round() on a sliver of features.  On rows where the two
     # encodes quantise identically the chains agree to f32 rounding of
     # the factored-out scales; overall the flips stay rare.
-    from ipu_path_trace_tpu.ops.nif_pallas import nif_encode
-
     f_kern = np.asarray(
         nif_encode(u, v, meta.embedding_dimension, jnp.float32)).T
     q_train = np.clip(np.round(np.asarray(feats) * 127), -127, 127)
@@ -238,106 +272,6 @@ def test_qat_finetune_smoke(small_nif):
 
 
 @pytest.mark.quick
-def test_env_shade_pallas_quant(small_nif, small_quant):
-    """Fused escape-shade kernel (equirect -> int8 NIF -> weights) vs
-    the XLA quant twin on random escape directions."""
-    from ipu_path_trace_tpu.core.vecmath import Vec3
-    from ipu_path_trace_tpu.ops.nif_pallas import nif_env_shade_pallas
-
-    qp = small_quant
-    rng = np.random.default_rng(33)
-    p = 700
-    d = rng.normal(size=(3, p)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=0, keepdims=True)
-    wgt = rng.uniform(0, 1, size=(3, p)).astype(np.float32)
-    esc_dir = Vec3(*(jnp.asarray(r) for r in d))
-    esc_w = Vec3(*(jnp.asarray(r) for r in wgt))
-    az = jnp.float32(0.7)
-
-    got = nif_env_shade_pallas(qp, esc_dir, esc_w, az,
-                               block_size=256, interpret=True)
-    # Twin uses the KERNEL's equirect (ops/nif_pallas.equirect_from_dir):
-    # core/envmap.equirect_uv agrees only to ~6e-7, and int8 feature
-    # rounding amplifies that into whole-step flips on a few lanes.
-    from ipu_path_trace_tpu.ops.nif_pallas import equirect_from_dir
-
-    u, v = equirect_from_dir(esc_dir.x, esc_dir.y, esc_dir.z, az)
-    env = np.asarray(nif_apply_quant(qp, u, v))  # (P, 3) bgr
-    ref = np.stack([wgt[0] * env[:, 2], wgt[1] * env[:, 1],
-                    wgt[2] * env[:, 0]])
-    out = np.stack([np.asarray(got.x), np.asarray(got.y), np.asarray(got.z)])
-    rel = np.abs(out - ref) / (np.abs(ref) + 1e-2 * np.abs(ref).max())
-    # The kernel computes its equirect INSIDE the fused compile context;
-    # 1-ulp polynomial differences flip an int8 feature step on ~0.4% of
-    # lanes, and a random He-init net amplifies a flipped input feature
-    # to ~0.2 relative.  Bound the flip FREQUENCY, not the worst lane.
-    assert np.median(rel) < 1e-3
-    assert (rel > 1e-2).mean() < 0.01
-    assert rel.max() < 0.5
-
-
-def test_megastep_quant_matches_xla_chain(small_nif, small_quant):
-    """The fused megastep with QuantNifParams (--nif-precision int8)
-    against the XLA chain evaluating the SAME int8 net - host-noise +
-    interpret mode, mirroring test_megastep.test_megastep_matches_xla_chain."""
-    from ipu_path_trace_tpu.core.records import make_worklist
-    from ipu_path_trace_tpu.core.scene import default_scene
-    from ipu_path_trace_tpu.ops.megastep_pallas import render_megastep_pallas
-    from ipu_path_trace_tpu.render.params import RenderSettings, StaticConfig
-    from ipu_path_trace_tpu.render.wavefront import trace_sample_with_uniforms
-
-    W = H = 24
-    SAMPLES, MAXLEN = 2, 4
-    qp = small_quant
-    scene = default_scene()
-    cfg = StaticConfig(width=W, height=H, max_path_length=MAXLEN)
-    settings = RenderSettings.make(samples_per_step=SAMPLES)
-    work = make_worklist(W, H)
-    cols = jnp.asarray(work["u"], jnp.float32)
-    rows = jnp.asarray(work["v"], jnp.float32)
-    rng = np.random.default_rng(7)
-    p = cols.shape[0]
-    noise = rng.uniform(0, 1, size=(SAMPLES, 4 + 4 * MAXLEN, p)).astype(np.float32)
-    noise[:, 0:2] = rng.normal(size=(SAMPLES, 2, p))
-
-    rad = np.zeros((3, p), np.float32)
-    plen = np.zeros(p, np.int64)
-    for s in range(SAMPLES):
-        st = trace_sample_with_uniforms(
-            scene, settings, cfg, cols, rows,
-            jnp.asarray(noise[s, 0:2]), jnp.asarray(noise[s, 2:4]),
-            jnp.asarray(noise[s, 4:].reshape(MAXLEN, 4, p)),
-        )
-        # Kernel-matching equirect (see test_env_shade_pallas_quant):
-        from ipu_path_trace_tpu.ops.nif_pallas import equirect_from_dir
-
-        u, v = equirect_from_dir(st.esc_dir.x, st.esc_dir.y, st.esc_dir.z,
-                                 settings.azimuth)
-        u = jnp.where(st.escaped, u, 0.0)
-        v = jnp.where(st.escaped, v, 0.0)
-        out = np.asarray(nif_apply_quant(qp, u, v))  # (P, 3) bgr
-        rad[0] += np.asarray(st.radiance.x) + np.asarray(st.esc_w.x) * out[:, 2]
-        rad[1] += np.asarray(st.radiance.y) + np.asarray(st.esc_w.y) * out[:, 1]
-        rad[2] += np.asarray(st.radiance.z) + np.asarray(st.esc_w.z) * out[:, 0]
-        plen += np.asarray(st.path_len, np.int64)
-
-    out = render_megastep_pallas(
-        scene, settings, qp, cols, rows, noise=jnp.asarray(noise),
-        width=W, height=H, max_path_length=MAXLEN,
-        aa_noise_type=cfg.aa_noise_type, block_size=256, interpret=True,
-    )
-    got = np.stack([np.asarray(out.radiance.x), np.asarray(out.radiance.y),
-                    np.asarray(out.radiance.z)])
-    flipped = np.asarray(out.path_len) != plen
-    assert flipped.mean() < 5e-3, f"{flipped.sum()} flipped lanes"
-    ok = ~flipped
-    scale = np.abs(rad).max()
-    rel = (np.abs(got - rad) / (np.abs(rad) + 1e-2 * scale))[:, ok]
-    assert np.median(rel) < 5e-3
-    assert rel.max() < 8e-2
-
-
-@pytest.mark.quick
 def test_app_nif_precision_int8(tmp_path):
     """--nif-precision int8 end-to-end: the app loads the asset into a
     QuantNifParams env (honouring a QAT quant_amax.json sidecar) and a
@@ -362,7 +296,7 @@ def test_app_nif_precision_int8(tmp_path):
         outfile=str(tmp_path / "int8.png"), assets=assets,
         width=32, height=16, samples=2, samples_per_step=2,
         save_interval=1, seed=5, max_path_length=3,
-        pallas_interpret=2, nif_precision="int8",
+        nif_precision="int8",
     )
     cfg.validate()
     app = PathTracerApp(cfg)

@@ -17,18 +17,15 @@ ASSETS = {
     "procedural_sky_nif": ([320] * 6, 12),  # canonical reference architecture
     "nif_w128": ([128] * 6, 12),
     "nif_w192": ([192] * 6, 12),
-    # Bench default: E=16 puts the skip-concat exactly on 256 (zero MXU
-    # pad), buying +0.55 dB at identical kernel cost (docs/PERF.md):
+    # E=16 puts the skip-concat exactly on 256 input features:
     "nif_w192e16": ([192] * 6, 16),
-    # Quality asset: 61.12 dB (best measured), same rate as E=12:
+    # Quality asset (the widest E=16 net):
     "nif_w256e16": ([256] * 6, 16),
-    # The mixed-width speed extreme: 444 Mpaths/s, the fastest measured
-    # configuration (docs/PERF.md "mixed per-layer widths"):
+    # The mixed-width net (per-layer widths):
     "nif_m128-128-80-128-128-128": ([128, 128, 80, 128, 128, 128], 12),
     # Reference-scale asset: canonical 6x320 trained on the deterministic
     # 2048x4096 synthetic urban-alley env (the reference's
-    # urban_alley_01_4k content class; docs/NIF_WIDTHS.json
-    # "urban_alley_synth_2048x4096"):
+    # urban_alley_01_4k content class):
     "urban_alley_synth_nif": ([320] * 6, 12),
 }
 
